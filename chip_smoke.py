@@ -6,23 +6,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It imports nothing of JAX or of the JAX package, and runs in phases;
-any failed phase exits non-zero and prints no result:
+any failed phase exits non-zero and prints no result. Two paths are
+driven: TinyLlama-1.1B widths with online_i8i8 weights over a bf16 paged
+KV cache (K1, K2, K3), and LLaMA-2-7B widths with online_w4a8 weights, an
+int4 lm_head and an int8 group-8 KV cache (K1 and K2 on int8 pages, K4).
 
 1. the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel);
-3. one phase per kernel at the main path's shapes (TinyLlama-1.1B widths,
-   bf16): kernel vs its plain PyTorch version on the same inputs with the
-   stated tolerance, kernel ms, plain ms, the least time the card could
-   take (bound), and one PyTorch library call computing the same function
-   as a yardstick (never called by the port);
-4. step cross-check: a 2-layer model at full width, same weights on cuda
+3. one phase per kernel at each path's shapes: kernel vs its plain
+   PyTorch version on the same inputs with the stated tolerance, kernel
+   ms, plain ms, the least time the card could take (bound), and one
+   PyTorch library call computing the same function as a yardstick
+   (never called by the port; none exists for K4, which gets torch._int_mm
+   on the unpacked int8 weight as an orientation figure only);
+4. step cross-checks: 2-layer models at full width, same weights on cuda
    (kernels) and cpu (plain versions), one mixed decode+prefill step in
-   float32: logits within tolerance, greedy tokens equal;
-5. end to end: create_engine + LLMGenerator + LocalConnection at
-   TinyLlama widths, 22 layers, online_i8i8, bf16 paged KV, serving 8
-   greedy requests (100-400 prompt tokens, 32 new tokens each), with every
-   kernel's launch counter read around that run; then a torch.profiler
-   pass over the same traffic for the device-time breakdown;
+   float32: logits within tolerance, greedy tokens equal, written cache
+   rows within tolerance;
+5. end to end, once per path: create_engine + LLMGenerator +
+   LocalConnection serving 8 greedy requests (100-400 prompt tokens, 32
+   new tokens each) at full depth, with every kernel's launch counter set
+   to 0 just before and read just after; then a torch.profiler pass over
+   the same traffic for the device-time breakdown;
 6. the ``kernels`` JSON line, then the device JSON line last.
 """
 
@@ -39,6 +44,11 @@ SEED = 0
 TINY = dict(hidden_dim=2048, intermediate_dim=5632, num_layers=22,
             num_heads=32, num_kv_heads=4, vocab_size=32000, cache_mode=1,
             page_size=128, dtype="bfloat16")
+# LLaMA-2-7B widths (bench.py:116-119) with int8 group-8 KV (:145-147)
+LLAMA7B = dict(hidden_dim=4096, intermediate_dim=11008, num_layers=32,
+               num_heads=32, num_kv_heads=32, vocab_size=32000, cache_mode=1,
+               page_size=128, dtype="bfloat16", cache_quant_bit=8,
+               cache_quant_group=8)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16 = 989e12            # dense tensor-core bf16 FLOP/s
 PEAK_INT8 = 1979e12           # dense tensor-core int8 OP/s
@@ -46,7 +56,9 @@ PS = 128
 KVP = 64                      # page-table width of the e2e plan (8192/128)
 F32_TOL = 2e-5                # f32 attention atol and rtol, as the gpu tests
 BF16_TOL = 3e-2               # flat bf16 limit: holds the bf16 load/store path
+W4_REL = 1e-5                 # K4 vs plain, of max|ref| (test_quant_w4.py)
 PERTURB_SEEDS = 3             # draws of the step check's i8i8 sensitivity
+CARD = ["?"]                  # the card's name and power limit, once read
 
 
 class PhaseError(RuntimeError):
@@ -113,6 +125,24 @@ def f32_excess(out, ref):
     return float(((out - ref).abs() / (F32_TOL + F32_TOL * ref.abs())).max())
 
 
+def report(kernel, c):
+    """Log one phase-3 case as soon as it is measured."""
+    lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+    f32 = ("" if "f32_max_abs_err" not in c else
+           f", f32 max|diff| {c['f32_max_abs_err']:.3g} (atol/rtol "
+           f"{c['f32_tol']})")
+    orient = c.get("orientation_int_mm_ms")
+    if isinstance(orient, float):
+        orient = f"{orient:.4f}"
+    orient = ("" if orient is None else f", _int_mm on the unpacked weight "
+              f"(orientation only) {orient} ms")
+    log(f"[kernel] {kernel} {c['case']}: max|diff| {c['max_abs_err']:.3g} "
+        f"(tol {c['tol']}){f32}, kernel {c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.4f} ms, library {lib} ms{orient}, bound "
+        f"{c['bound_ms']:.5f} ms ({c['bound_by']}) on {CARD[0]}")
+    return c
+
+
 def bound(bytes_moved, ops, peak_ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -121,21 +151,69 @@ def bound(bytes_moved, ops, peak_ops):
 
 # ------------------------------------------------------------ kernel phases
 
-def decode_cases(torch, timer, pk, attn_ops, kv_cache, F):
-    cfg = TINY
-    hq, kvh = cfg["num_heads"], cfg["num_kv_heads"]
-    hd = cfg["hidden_dim"] // hq
-    L = cfg["num_layers"]
-    spec = kv_cache.CacheSpec(num_layers=L, num_pages=600, page_size=PS,
-                              num_kv_heads=kvh, head_dim=hd,
+def geometry(widths):
+    hq, kvh = widths["num_heads"], widths["num_kv_heads"]
+    return hq, kvh, widths["hidden_dim"] // hq, widths["num_layers"]
+
+
+def random_cache(torch, kv_cache, spec, g):
+    """A whole cache of random contents: N(0, 1) bf16 values, or N(0, 1)
+    K/V quantized as the step quantizes them (int8 values and their bf16
+    group scales), a slab of slots at a time."""
+    dev = torch.device("cuda")
+    kvh, n = spec.num_kv_heads, spec.num_layers * spec.num_slots
+    if not spec.quantized:
+        return torch.randn((kvh, n, spec.row_lanes), generator=g, device=dev,
+                           dtype=torch.bfloat16), None
+    cache, scale = kv_cache.init_cache(spec, dev)
+    for r0 in range(0, n, 1 << 15):
+        r1 = min(n, r0 + (1 << 15))
+        k, v = torch.randn((2, r1 - r0, kvh, spec.head_dim), generator=g,
+                           device=dev)
+        qk, sk = kv_cache.quantize_kv(k, spec.quant_group)
+        qv, sv = kv_cache.quantize_kv(v, spec.quant_group)
+        cache[:, r0:r1] = kv_cache.pack_kv_rows(qk, qv, spec).permute(1, 0, 2)
+        scale[r0:r1] = kv_cache.pack_scale_rows(sk, sv, spec)
+    return cache, scale
+
+
+def kv_bytes_per_token(spec):
+    """Bytes one cached token occupies across the kv heads: its k|v rows
+    and, under int8 KV, its bf16 group scales."""
+    b = spec.num_kv_heads * 2 * spec.head_dim * (1 if spec.quantized else 2)
+    if spec.quantized:
+        b += spec.num_kv_heads * spec.scale_lane_stride * 2
+    return b
+
+
+def attn_check(name, out, ref, out32, ref32):
+    """bf16 within the flat limit; f32 within atol/rtol 2e-5, int8 KV
+    too: the kernels dequantize int8 x bf16 scale exactly in f32, as the
+    plain version does, so only the order of the softmax sums differs
+    (tighter than the 1e-3/1e-2 the JAX package allows its bf16-dequant
+    Pallas path, which would let a lost key of a 300-token row pass)."""
+    err = float((out.float() - ref.float()).abs().max())
+    check(err <= BF16_TOL, f"{name}: max|diff| {err} > {BF16_TOL}")
+    err32 = float((out32 - ref32).abs().max())
+    check(f32_excess(out32, ref32) <= 1,
+          f"{name} f32: max|diff| {err32} beyond atol/rtol {F32_TOL}")
+    return err, err32
+
+
+def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
+                 quantized, batches, label):
+    hq, kvh, hd, L = geometry(widths)
+    spec = kv_cache.CacheSpec(num_layers=L, num_pages=600 if not quantized
+                              else 64, page_size=PS, num_kv_heads=kvh,
+                              head_dim=hd, quant_bit=8 if quantized else 0,
+                              quant_group=8 if quantized else 1,
                               dtype=torch.bfloat16)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cache = torch.randn((kvh, L * spec.num_slots, spec.row_lanes),
-                        generator=g, device=dev, dtype=torch.bfloat16)
+    cache, scale = random_cache(torch, kv_cache, spec, g)
     rng = np.random.default_rng(SEED)
     cases = []
-    for b in (8, 64):
+    for b in batches:
         ctx = rng.integers(100, 433, b).astype(np.int32)
         ctx[rng.choice(b, max(1, b // 16), replace=False)] = 0  # padding
         pt = np.full((b, KVP), spec.trash_page, np.int32)
@@ -155,38 +233,34 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F):
 
         def kern(q=q, cache=cache, fk=fk, fv=fv, spec=spec):
             return pk.paged_decode_attention(
-                q, cache, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
+                q, cache, scale, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
                 fresh_v=fv)
 
         def plain(q=q, cache=cache, fk=fk, fv=fv, spec=spec):
             out = attn_ops.decode_attention_ref(
-                q, cache, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
+                q, cache, scale, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
                 fresh_v=fv)
             return torch.where((ctx_t > 0)[:, None, None], out,
                                torch.zeros((), dtype=out.dtype, device=dev))
 
         out = kern()
         ref = plain()
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        check(err <= BF16_TOL, f"K1 decode B={b}: max|diff| {err} > "
-              f"{BF16_TOL}")
         # the same inputs in f32: bf16 rounding hides a lost key (a move of
         # about 1/ctx), the f32 limit does not
-        f32 = dict(q=q.float(), cache=cache.float(), fk=fk.float(),
-                   fv=fv.float(), spec=dataclasses.replace(
-                       spec, dtype=torch.float32))
+        f32 = dict(q=q.float(), fk=fk.float(), fv=fv.float(),
+                   spec=dataclasses.replace(spec, dtype=torch.float32))
+        if not quantized:
+            f32["cache"] = cache.float()
         out32, ref32 = kern(**f32), plain(**f32)
         torch.cuda.synchronize()
-        err32 = float((out32 - ref32).abs().max())
-        check(f32_excess(out32, ref32) <= 1,
-              f"K1 decode B={b} f32: max|diff| {err32} beyond atol/rtol "
-              f"{F32_TOL}")
+        err, err32 = attn_check(f"K1 decode {label} B={b}", out, ref, out32,
+                                ref32)
         del f32, out32, ref32
-        # yardstick: SDPA over K/V gathered densely beforehand
+        # yardstick: SDPA over K/V gathered (and dequantized) beforehand
         lmax = int(ctx.max())
-        k_d, v_d = kv_cache.gather_pages(cache, pt_t[:, :-(-lmax // PS)],
-                                         spec, torch.bfloat16, layer)
+        k_d, v_d = kv_cache.gather_pages(cache, scale,
+                                         pt_t[:, :-(-lmax // PS)], spec,
+                                         torch.bfloat16, layer)
         k_d = k_d[:, :lmax].permute(0, 2, 1, 3).contiguous()
         v_d = v_d[:, :lmax].permute(0, 2, 1, 3).contiguous()
         mask = (torch.arange(lmax, device=dev)[None, :]
@@ -203,34 +277,36 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F):
         n_cached = int((ctx[live] - 1).sum())
         pages = int(sum(-(-(int(c) - 1) // PS) for c in ctx[live]))
         # q and fresh k/v of the live rows (a ctx 0 row writes zeros and
-        # reads nothing), every output row, the cached k|v rows and the
-        # page-table entries that hold them, context_len
+        # reads nothing), every output row, the cached k|v rows (and their
+        # scales) and the page-table entries that hold them, context_len
         bytes_moved = ((n_live + b) * hq * hd * 2
-                       + (n_live + n_cached) * kvh * 2 * hd * 2
+                       + n_live * kvh * 2 * hd * 2
+                       + n_cached * kv_bytes_per_token(spec)
                        + pages * 4 + b * 4)
         ops = 4 * hq * hd * (n_cached + n_live)
         bms, by = bound(bytes_moved, ops, PEAK_BF16)
-        cases.append(dict(case=f"B={b} bf16 ctx {int(ctx.min())}-{lmax}",
-                          max_abs_err=err, tol=BF16_TOL,
-                          f32_max_abs_err=err32, ms=timer.ms(kern),
-                          plain_ms=timer.ms(plain, iters=5),
+        cases.append(report("paged_decode_attention", dict(
+                          case=f"{label} B={b} bf16 ctx {int(ctx.min())}-"
+                          f"{lmax}", path=label, max_abs_err=err,
+                          tol=BF16_TOL, f32_max_abs_err=err32,
+                          f32_tol=F32_TOL,
+                          ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
                           library_ms=timer.ms(lib, iters=5),
-                          bound_ms=bms, bound_by=by))
+                          bound_ms=bms, bound_by=by)))
     return cases
 
 
-def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F):
-    cfg = TINY
-    hq, kvh = cfg["num_heads"], cfg["num_kv_heads"]
-    hd = cfg["hidden_dim"] // hq
-    L = cfg["num_layers"]
-    spec = kv_cache.CacheSpec(num_layers=L, num_pages=200, page_size=PS,
-                              num_kv_heads=kvh, head_dim=hd,
+def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
+                  quantized, which, label):
+    hq, kvh, hd, L = geometry(widths)
+    spec = kv_cache.CacheSpec(num_layers=L, num_pages=200 if not quantized
+                              else 64, page_size=PS, num_kv_heads=kvh,
+                              head_dim=hd, quant_bit=8 if quantized else 0,
+                              quant_group=8 if quantized else 1,
                               dtype=torch.bfloat16)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    cache = torch.randn((kvh, L * spec.num_slots, spec.row_lanes),
-                        generator=g, device=dev, dtype=torch.bfloat16)
+    cache, scale = random_cache(torch, kv_cache, spec, g)
     rng = np.random.default_rng(SEED + 1)
     # (label, Bp, Qp, start, new_len): the e2e prefill wave; a prefix hit
     # of 2 pages; the full-hit replay row (start = hit - 1, new_len = 1)
@@ -239,9 +315,9 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F):
              ("start=2 pages", 8, 256, np.full(8, 2 * PS, np.int32),
               rng.integers(100, 257, 8).astype(np.int32)),
              ("replay row", 1, 128, np.array([2 * PS - 1], np.int32),
-              np.array([1], np.int32))]
+              np.array([1], np.int32))][:which]
     cases = []
-    for label, bp, qp, start, new_len in specs:
+    for plabel, bp, qp, start, new_len in specs:
         width = -(-int((start + qp).max()) // PS)   # pages the rows span
         pt = np.stack([rng.choice(spec.num_pages, width, replace=False)
                        for _ in range(bp)]).astype(np.int32)
@@ -250,47 +326,55 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F):
         nl = torch.from_numpy(new_len).to(dev)
         q = torch.randn((bp, qp, hq, hd), generator=g, device=dev,
                         dtype=torch.bfloat16)
-        fresh = torch.randn((bp, kvh, qp, 2 * hd), generator=g, device=dev,
-                            dtype=torch.bfloat16)
+        k_new = torch.randn((bp, qp, kvh, hd), generator=g, device=dev)
+        v_new = torch.randn((bp, qp, kvh, hd), generator=g, device=dev)
+        fscale = None
+        if quantized:
+            qk, sk = kv_cache.quantize_kv(k_new, 8)
+            qv, sv = kv_cache.quantize_kv(v_new, 8)
+            fresh = kv_cache.pack_kv_rows(qk, qv, spec)
+            fscale = kv_cache.pack_scale_rows(sk, sv, spec).contiguous()
+            fk = kv_cache.dequantize_kv(qk, sk, 8, torch.float32)
+            fv = kv_cache.dequantize_kv(qv, sv, 8, torch.float32)
+        else:
+            fresh = kv_cache.pack_kv_rows(k_new, v_new, spec).to(
+                torch.bfloat16)
+            fk, fv = k_new.to(torch.bfloat16), v_new.to(torch.bfloat16)
+        fresh = fresh.permute(0, 2, 1, 3).contiguous()
         layer = L - 1
 
         def kern(q=q, cache=cache, fresh=fresh, spec=spec):
-            return pk.paged_prefill_attention(q, cache, pt_t, st, nl, spec,
-                                              layer=layer, fresh_kv=fresh)
+            return pk.paged_prefill_attention(
+                q, cache, scale, pt_t, st, nl, spec, layer=layer,
+                fresh_kv=fresh, fresh_scale=fscale)
 
         def plain(q=q, cache=cache, fresh=fresh, spec=spec):
             return attn_ops.prefill_attention_ref(
-                q, cache, pt_t, st, nl, spec, layer=layer,
-                fresh_k=fresh[..., :hd].permute(0, 2, 1, 3),
-                fresh_v=fresh[..., hd:].permute(0, 2, 1, 3))
+                q, cache, scale, pt_t, st, nl, spec, layer=layer,
+                fresh_k=fk.to(q.dtype), fresh_v=fv.to(q.dtype))
 
         out = kern()
         ref = plain()
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        check(err <= BF16_TOL, f"K2 prefill {label}: max|diff| {err} > "
-              f"{BF16_TOL}")
-        f32 = dict(q=q.float(), cache=cache.float(), fresh=fresh.float(),
-                   spec=dataclasses.replace(spec, dtype=torch.float32))
+        f32 = dict(q=q.float(), spec=dataclasses.replace(
+            spec, dtype=torch.float32))
+        if not quantized:
+            f32.update(cache=cache.float(), fresh=fresh.float())
         out32, ref32 = kern(**f32), plain(**f32)
         torch.cuda.synchronize()
-        err32 = float((out32 - ref32).abs().max())
-        check(f32_excess(out32, ref32) <= 1,
-              f"K2 prefill {label} f32: max|diff| {err32} beyond atol/rtol "
-              f"{F32_TOL}")
+        err, err32 = attn_check(f"K2 prefill {label} {plabel}", out, ref,
+                                out32, ref32)
         del f32, out32, ref32
-        fk = fresh[..., :hd].permute(0, 2, 1, 3)
-        fv = fresh[..., hd:].permute(0, 2, 1, 3)
         # yardstick: SDPA over the dense prefix + fresh K/V with the
         # prefill mask
         s0 = int(start[0])
+        fk_b, fv_b = fk.to(torch.bfloat16), fv.to(torch.bfloat16)
         if s0:
-            k_c, v_c = kv_cache.gather_pages(cache, pt_t, spec,
+            k_c, v_c = kv_cache.gather_pages(cache, scale, pt_t, spec,
                                              torch.bfloat16, layer)
-            k_all = torch.cat([k_c[:, :s0], fk], 1)
-            v_all = torch.cat([v_c[:, :s0], fv], 1)
+            k_all = torch.cat([k_c[:, :s0], fk_b], 1)
+            v_all = torch.cat([v_c[:, :s0], fv_b], 1)
         else:
-            k_all, v_all = fk, fv
+            k_all, v_all = fk_b, fv_b
         k_all = k_all.permute(0, 2, 1, 3).contiguous()
         v_all = v_all.permute(0, 2, 1, 3).contiguous()
         q4 = q.permute(0, 2, 1, 3).contiguous()
@@ -310,22 +394,24 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F):
                        for s, n in zip(start, new_len)))
         cached_read = int(start.sum())
         pages = int(sum(-(-int(s) // PS) for s in start))
-        # q and fresh k|v of the valid rows only (a row past new_len writes
-        # zeros and is never attended), every output row, the cached
-        # prefix and the page-table entries that hold it, start, new_len
+        # q and fresh k|v (and scales) of the valid rows only (a row past
+        # new_len writes zeros and is never attended), every output row,
+        # the cached prefix and the page-table entries that hold it,
+        # start, new_len
         bytes_moved = ((valid_q + bp * qp) * hq * hd * 2
-                       + (valid_q + cached_read) * kvh * 2 * hd * 2
+                       + (valid_q + cached_read) * kv_bytes_per_token(spec)
                        + pages * 4 + 2 * bp * 4)
         ops = 4 * hq * hd * keys
         bms, by = bound(bytes_moved, ops, PEAK_BF16)
-        cases.append(dict(case=f"{label} Bp={bp} Qp={qp} new_len "
+        cases.append(report("paged_prefill_attention", dict(
+                          case=f"{label} {plabel} Bp={bp} Qp={qp} new_len "
                           f"{int(new_len.min())}-{int(new_len.max())} "
-                          f"({valid_q} rows) bf16",
+                          f"({valid_q} rows) bf16", path=label,
                           max_abs_err=err, tol=BF16_TOL,
-                          f32_max_abs_err=err32, ms=timer.ms(kern),
-                          plain_ms=timer.ms(plain, iters=5),
+                          f32_max_abs_err=err32, f32_tol=F32_TOL,
+                          ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
                           library_ms=timer.ms(lib, iters=5),
-                          bound_ms=bms, bound_by=by))
+                          bound_ms=bms, bound_by=by)))
     return cases
 
 
@@ -392,11 +478,95 @@ def i8i8_cases(torch, timer, qk, quant_ops):
                            + c * t * n * 2)
             ops = 2 * t * k_dim * c * n
             bms, by = bound(bytes_moved, ops, PEAK_INT8)
-            cases.append(dict(case=f"{name} T={t} D={k_dim} N={c}x{n} "
-                              f"bf16{lib_note}", max_abs_err=err, tol=tol,
-                              ms=timer.ms(kern),
-                              plain_ms=timer.ms(plain, iters=5),
-                              library_ms=lib_ms, bound_ms=bms, bound_by=by))
+            cases.append(report("i8i8_matmul", dict(
+                case=f"{name} T={t} D={k_dim} N={c}x{n} bf16{lib_note}",
+                max_abs_err=err, tol=tol, ms=timer.ms(kern),
+                plain_ms=timer.ms(plain, iters=5), library_ms=lib_ms,
+                bound_ms=bms, bound_by=by)))
+    return cases
+
+
+def w4a8_cases(torch, timer, qk, quant_ops):
+    """K4 at the LLaMA-2-7B widths: each weight at a decode (T=8) and a
+    prefill (T=1024) size, with bf16 and f32 out. f32 holds 1e-5 of
+    max|ref| (the groups' partial sums are added in another order); bf16
+    2^-8 |ref| + 1e-5 max|ref| per element (one bf16 rounding more)."""
+    d, inter = LLAMA7B["hidden_dim"], LLAMA7B["intermediate_dim"]
+    hq, kvh, hd, _ = geometry(LLAMA7B)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    weights = [("wqkv", (d, kvh, hq // kvh + 2, hd)), ("wo", (d, d)),
+               ("gate|up", (d, 2, inter)), ("down", (inter, d)),
+               ("lm_head", (d, LLAMA7B["vocab_size"]))]
+    cases = []
+    for name, shape in weights:
+        w = torch.randn(shape, generator=g, device=dev) * shape[0] ** -0.5
+        wp, ws = quant_ops.quantize_weight_int4(w)
+        del w
+        if wp.ndim == 3:                       # fused: C-leading
+            wp = wp.permute(1, 0, 2).contiguous()
+            ws = ws.permute(1, 0, 2).contiguous()
+            c, d2, n = wp.shape
+            groups = ws.shape[1]
+        else:
+            c, d2 = 1, wp.shape[0]
+            n = wp.numel() // d2
+            groups = ws.shape[0]
+        k_dim = 2 * d2
+        # orientation only: torch._int_mm on the unpacked int8 weight
+        # [D, C*N], column-major as cuBLASLt's int8 path wants
+        wu = (quant_ops.unpack_int4(wp.permute(1, 0, 2).reshape(d2, c * n))
+              if wp.ndim == 3 else quant_ops.unpack_int4(wp.reshape(d2, n)))
+        wu_cm = wu.t().contiguous().t()
+        del wu
+        for t in (8, 1024):
+            x = torch.randn((t, k_dim), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            ref = quant_ops.w4a8_matmul(x, wp, ws)
+            scale = float(ref.abs().max())
+            xq, _ = quant_ops.quantize_activation(x)
+            rows = max(t, 32)   # _int_mm needs more than 16 rows
+            xq_lib = torch.zeros((rows, k_dim), dtype=torch.int8, device=dev)
+            xq_lib[:t] = xq
+            try:
+                torch._int_mm(xq_lib, wu_cm)
+                orient = timer.ms(lambda: torch._int_mm(xq_lib, wu_cm),
+                                  iters=5)
+            except RuntimeError as e:
+                orient = f"unavailable: {str(e)[:60]}"
+            for out_dtype in (torch.bfloat16, torch.float32):
+                def kern(out_dtype=out_dtype):
+                    return qk.w4a8_matmul(x, wp, ws, out_dtype=out_dtype)
+
+                def plain(out_dtype=out_dtype):
+                    return quant_ops.w4a8_matmul(x, wp, ws).to(out_dtype)
+
+                out = kern().float()
+                torch.cuda.synchronize()
+                diff = (out - ref).abs()
+                err = float(diff.max())
+                bf = out_dtype == torch.bfloat16
+                lim = W4_REL * scale + (2.0 ** -8 * ref.abs() if bf else 0.0)
+                check(bool((diff <= lim).all()),
+                      f"K4 {name} T={t} {'bf16' if bf else 'f32'}: max|diff| "
+                      f"{err} beyond {'2^-8 |ref| + ' if bf else ''}"
+                      f"{W4_REL:g} * max|ref| ({scale:.4g})")
+                osz = 2 if bf else 4
+                bytes_moved = (k_dim * c * n // 2 + c * groups * n * 4
+                               + t * k_dim * 2 + c * t * n * osz)
+                ops = 2 * t * k_dim * c * n
+                bms, by = bound(bytes_moved, ops, PEAK_INT8)
+                cases.append(report("w4a8_matmul", dict(
+                    case=f"{name} T={t} D={k_dim} N={c}x{n} G={groups} "
+                    f"{'bf16' if bf else 'f32'} out", path="llama2-7b w4a8",
+                    max_abs_err=err, rel_err=err / scale,
+                    tol=f"{'2^-8|ref|+' if bf else ''}{W4_REL:g}*max|ref|",
+                    ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
+                    library_ms=None, orientation_int_mm_ms=orient,
+                    bound_ms=bms, bound_by=by)))
+            del ref, xq_lib
+        del wp, ws, wu_cm
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -432,26 +602,43 @@ class perturbed_attention:
         return False
 
 
-def step_cross_check(torch, port, quant_method):
-    """One mixed step, f32, same weights on cuda (kernels) and cpu (plain
-    versions). Tolerance on the logits: for float weights 1e-4 of the
-    largest logit (f32 summation order over two layers); for online_i8i8
-    three times the largest move that a 1e-6 relative perturbation of the
-    attention outputs causes on the cpu over PERTURB_SEEDS draws, measured
-    here: any difference upstream of an int8 activation quantization flips
-    some roundings, and each flip moves a logit by about one quantization
-    step."""
+def dequantized(cache, scale, spec):
+    """The cache as f32 values: itself, or int8 x its group scales."""
+    if scale is None:
+        return cache
+    kvh, n, _ = cache.shape
+    g = spec.scale_groups
+    s = scale[:, :kvh * 2 * g].float().reshape(n, kvh, 2 * g)
+    s = s.permute(1, 0, 2).repeat_interleave(spec.quant_group, dim=-1)
+    return cache.float() * s
+
+
+def step_cross_check(torch, port, quant_method, widths):
+    """One mixed step, f32, the same weights on cuda (kernels) and cpu
+    (plain versions); quantized weights are quantized once, on the card,
+    and the same bytes copied to the cpu. Tolerance on the logits: for
+    float weights 1e-4 of the largest logit (f32 summation order over two
+    layers); for quantized weights three times the largest move that a
+    1e-6 relative perturbation of the attention outputs causes on the cpu
+    over PERTURB_SEEDS draws, measured here: any difference upstream of an
+    int8 activation (or int8 KV) quantization flips some roundings, and
+    each flip moves a logit by about one quantization step. The written
+    cache rows (dequantized under int8 KV) are held the same way."""
     llama, kv, samp = port["llama"], port["kv"], port["samp"]
     ModelConfig = port["ModelConfig"]
-    cfg = ModelConfig(**dict(TINY, num_layers=2, dtype="float32"))
+    cfg = ModelConfig(**dict(widths, num_layers=2, dtype="float32"))
     npages = 24
     spec = kv.CacheSpec(num_layers=2, num_pages=npages, page_size=PS,
                         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                        quant_bit=cfg.cache_quant_bit,
+                        quant_group=cfg.cache_quant_group,
                         dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     p_gpu = llama.init_params(cfg, gen, dtype=torch.float32, device="cuda")
-    if quant_method == "online_i8i8":
-        p_gpu = llama.quantize_model_params(p_gpu)
+    if quant_method != "none":
+        p_gpu = llama.quantize_model_params(
+            p_gpu, quant_method,
+            quantize_lm_head=quant_method == "online_w4a8")
 
     def to_cpu(p):
         out = {k: v.cpu() for k, v in p.items() if k != "layers"}
@@ -461,9 +648,17 @@ def step_cross_check(torch, port, quant_method):
 
     p_cpu = to_cpu(p_gpu)
     rng = np.random.default_rng(SEED + 3)
-    cache0 = torch.from_numpy(rng.standard_normal(
-        (spec.num_kv_heads, 2 * spec.num_slots, spec.row_lanes)).astype(
+    shape = (spec.num_kv_heads, 2 * spec.num_slots, spec.row_lanes)
+    if spec.quantized:
+        cache0 = torch.from_numpy(rng.integers(-127, 128, shape).astype(
+            np.int8))
+        scale0 = torch.from_numpy(rng.uniform(
+            0.005, 0.03, (shape[1], spec.scale_lanes)).astype(
+                np.float32)).to(torch.bfloat16)
+    else:
+        cache0 = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32))
+        scale0 = None
     # decode rows: 3 live + 1 padding; prefill rows: a fresh 200-token
     # prompt and a 100-token continuation after a 1-page prefix hit
     bd, bp, qp, kvp = 4, 2, 256, 4
@@ -492,47 +687,55 @@ def step_cross_check(torch, port, quant_method):
         return llama.StepInput(sampling=sp, **t)
 
     step = llama.make_step_fn(cfg, spec, return_logits=True,
-                              greedy_only=True)
-    c_gpu = cache0.cuda()
-    out_g = step(p_gpu, c_gpu, torch.zeros((1, 1), dtype=torch.int32,
-                                           device="cuda"), make_input("cuda"))
+                              quant_method=quant_method, greedy_only=True)
+
+    def clone(x, dev="cpu"):
+        return None if x is None else x.to(dev, copy=True)
+
+    c_gpu, s_gpu = cache0.cuda(), clone(scale0, "cuda")
+    out_g = step(p_gpu, c_gpu, s_gpu,
+                 torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+                 make_input("cuda"))
     torch.cuda.synchronize()
-    c_cpu = cache0.clone()
+    c_cpu, s_cpu = cache0.clone(), clone(scale0)
     cm_cpu = torch.zeros((1, 1), dtype=torch.int32)
-    out_c = step(p_cpu, c_cpu, cm_cpu, make_input("cpu"))
+    out_c = step(p_cpu, c_cpu, s_cpu, cm_cpu, make_input("cpu"))
     lc = out_c.logits.numpy()[live]
+    v_cpu = dequantized(c_cpu, s_cpu, spec)
     # every slot but the trash page's, whose padding writes race
     keep = torch.ones(2 * spec.num_slots, dtype=torch.bool)
     for layer in range(2):
         lo = layer * spec.num_slots + spec.trash_page * PS
         keep[lo:lo + PS] = False
-    i8 = quant_method == "online_i8i8"
+    quantized = quant_method != "none" or spec.quantized
     sens, cache_sens = [], []
-    for seed in (range(PERTURB_SEEDS) if i8 else ()):
-        c_p = cache0.clone()
+    for seed in (range(PERTURB_SEEDS) if quantized else ()):
+        c_p, s_p = cache0.clone(), clone(scale0)
         with perturbed_attention(torch, port["pk"], 1e-6,
                                  torch.Generator().manual_seed(seed)):
-            out_p = step(p_cpu, c_p, cm_cpu, make_input("cpu"))
+            out_p = step(p_cpu, c_p, s_p, cm_cpu, make_input("cpu"))
         sens.append(float(np.abs(out_p.logits.numpy()[live] - lc).max()))
-        cache_sens.append(float((c_p - c_cpu)[:, keep].abs().max()))
+        v_p = dequantized(c_p, s_p, spec)
+        cache_sens.append(float((v_p - v_cpu)[:, keep].abs().max()))
     lg = out_g.logits.cpu().numpy()[live]
     check(np.isfinite(lg).all(), "step logits not finite on cuda")
     err = float(np.abs(lg - lc).max())
     scale = float(np.abs(lc).max())
     tol = 3 * max(sens, default=0.0) + 1e-4 * scale
-    check(err <= tol, f"step {quant_method} logits: max|diff| {err} > "
-          f"{tol}")
-    cache_err = float((c_gpu.cpu() - c_cpu)[:, keep].abs().max())
+    label = quant_method + (" + int8 KV" if spec.quantized else "")
+    check(err <= tol, f"step {label} logits: max|diff| {err} > {tol}")
+    v_gpu = dequantized(c_gpu.cpu(), clone(s_gpu), spec)
+    cache_err = float((v_gpu - v_cpu)[:, keep].abs().max())
     cache_tol = (3 * max(cache_sens, default=0.0)
-                 + 1e-4 * float(c_cpu[:, keep].abs().max()))
-    check(cache_err <= cache_tol, f"step {quant_method} cache: max|diff| "
+                 + 1e-4 * float(v_cpu[:, keep].abs().max()))
+    check(cache_err <= cache_tol, f"step {label} cache: max|diff| "
           f"{cache_err} > {cache_tol}")
     tg, tc = out_g.tokens.cpu().numpy()[live], out_c.tokens.numpy()[live]
     top2 = np.sort(lc, axis=-1)[:, -2:]
     decided = (top2[:, 1] - top2[:, 0]) > 2 * err
     check((tg[decided] == tc[decided]).all(),
           f"greedy tokens differ: cuda {tg} cpu {tc}")
-    return dict(quant=quant_method, logit_max_abs_err=err,
+    return dict(quant=label, width=cfg.hidden_dim, logit_max_abs_err=err,
                 logit_scale=scale, sensitivity=sens, tol=tol,
                 cache_max_abs_err=cache_err, cache_tol=cache_tol,
                 tokens_cuda=tg.tolist(),
@@ -542,19 +745,36 @@ def step_cross_check(torch, port, quant_method):
 
 # --------------------------------------------------------------- end to end
 
-def end_to_end(torch, port, name_limit):
-    """Serve the 8-request workload on the card at TinyLlama widths."""
+# the two paths phase 5 drives: (label, widths, ResourceConfig fields,
+# kernels that must launch, kernels that must not)
+PATHS = [
+    ("tinyllama i8i8", TINY,
+     dict(quant_method="online_i8i8", kv_cache_max_tokens=32768),
+     ("paged_decode_attention", "paged_prefill_attention", "i8i8_matmul"),
+     ("w4a8_matmul",)),
+    ("llama2-7b w4a8 int8-kv", LLAMA7B,
+     dict(quant_method="online_w4a8", quantize_lm_head=True,
+          kv_cache_max_tokens=16384),
+     ("paged_decode_attention", "paged_prefill_attention", "w4a8_matmul"),
+     ("i8i8_matmul",)),
+]
+
+
+def end_to_end(torch, port, name_limit, label, widths, resource, launched,
+               idle):
+    """Serve the 8-request workload on the card through the user's entry
+    points, on one path."""
     cfgs = port["config"]
     kernels = port["kernels"]
-    model_cfg = cfgs.ModelConfig(**TINY)
+    model_cfg = cfgs.ModelConfig(**widths)
     gen_cfg = cfgs.GeneratorConfig(
         max_running_batch=16, max_prefill_batch=8, max_tokens_per_step=8192,
         max_input_tokens_per_request=4096,
         max_output_tokens_per_request=256,
         max_total_tokens_per_request=8192)
-    rcfg = cfgs.ResourceConfig(quant_method="online_i8i8",
-                               kv_cache_max_tokens=32768)
+    rcfg = cfgs.ResourceConfig(**resource)
     free, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, kv_max = port["create_engine"](model_cfg, rcfg, gen_cfg,
                                            rng_seed=SEED)
@@ -562,9 +782,18 @@ def end_to_end(torch, port, name_limit):
     setup_s = time.perf_counter() - t0
     auto = port["compute_kv"](model_cfg, cfgs.ResourceConfig(),
                               torch.cuda.mem_get_info()[0])
-    log(f"[e2e] engine ready in {setup_s:.1f} s; KV pool {kv_max} tokens "
-        f"(explicit); the auto-sized pool would be {auto} tokens "
-        f"(free {free >> 20} MiB of {total >> 20} MiB before weights)")
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 [v for k, v in engine._params.items() if k != "layers"]
+                 + [v for lp in engine._params["layers"] for v in lp.values()])
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in (engine.kv_cache, engine.kv_scale)
+                   if t is not None)
+    log(f"[e2e {label}] engine ready in {setup_s:.1f} s; weights "
+        f"{nbytes / 1e9:.2f} GB, KV pool {kv_max} tokens in "
+        f"{kv_bytes / 1e9:.2f} GB ({engine.kv_cache.dtype}) (explicit); "
+        f"the auto-sized pool would be {auto} tokens (free {free >> 20} MiB "
+        f"of {total >> 20} MiB before weights; peak "
+        f"{torch.cuda.max_memory_allocated() >> 20} MiB while building)")
     conn = port["LocalConnection"]()
     gen = port["LLMGenerator"](model_cfg, gen_cfg, engine,
                                port["ByteTokenizer"](), conn, kv_max)
@@ -590,7 +819,7 @@ def end_to_end(torch, port, name_limit):
         kernels.reset_launch_counts()
         elapsed, reqs = serve(8, 32, 0)
         counts = kernels.launch_counts()
-        log(f"[e2e] launch counts over the main-path run: {counts}")
+        log(f"[e2e {label}] launch counts over the main-path run: {counts}")
         for r in reqs:
             toks = conn.tokens.get(r.id, [])
             check(r.id not in conn.failures,
@@ -601,11 +830,15 @@ def end_to_end(torch, port, name_limit):
                   f"e2e: request {r.id} tokens {toks}")
             check(np.isfinite(conn.logprobs[r.id]).all(),
                   f"e2e: request {r.id} logprobs not finite")
-        for name, n in counts.items():
-            check(n > 0, f"e2e: kernel {name} was never launched")
+        for name in launched:
+            check(counts[name] > 0,
+                  f"e2e {label}: kernel {name} was never launched")
+        for name in idle:
+            check(counts[name] == 0,
+                  f"e2e {label}: kernel {name} launched {counts[name]} times")
         n_tok = 8 * 32
         prompt_tok = sum(len(r.token_ids) for r in reqs)
-        log(f"[e2e] 8 requests, {prompt_tok} prompt tokens, {n_tok} "
+        log(f"[e2e {label}] 8 requests, {prompt_tok} prompt tokens, {n_tok} "
             f"generated in {elapsed:.3f} s: {n_tok / elapsed:.1f} "
             f"generated tok/s on {name_limit}")
 
@@ -626,18 +859,21 @@ def end_to_end(torch, port, name_limit):
                 rows.append((dev_us, ev.key, ev.count))
         rows.sort(reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
-        log(f"[e2e profile] wall {p_elapsed * 1e3:.1f} ms, device busy "
-            f"{busy_ms:.1f} ms ({100 * busy_ms / (p_elapsed * 1e3):.1f}% of "
-            f"wall); top device kernels (self ms, calls):")
+        log(f"[e2e {label} profile] wall {p_elapsed * 1e3:.1f} ms, device "
+            f"busy {busy_ms:.1f} ms ({100 * busy_ms / (p_elapsed * 1e3):.1f}%"
+            f" of wall) on {name_limit}; top device kernels (self ms, "
+            f"calls):")
         for dev_us, key, cnt in rows[:12]:
-            log(f"[e2e profile]   {dev_us / 1e3:9.2f} ms  {cnt:6d}  "
+            log(f"[e2e {label} profile]   {dev_us / 1e3:9.2f} ms  {cnt:6d}  "
                 f"{key[:90]}")
-        return dict(launches=counts, elapsed_s=elapsed,
+        return dict(path=label, launches=counts, elapsed_s=elapsed,
                     gen_tok_per_s=n_tok / elapsed, prompt_tokens=prompt_tok,
                     setup_s=setup_s, profiled_wall_ms=p_elapsed * 1e3,
                     device_busy_ms=busy_ms)
     finally:
         gen.shutdown()
+        del engine, gen
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -685,6 +921,7 @@ def main():
     t_start = time.perf_counter()
     try:
         name_limit = gpu_name_and_limit()
+        CARD[0] = name_limit
         log(name_limit)
         log(f"[card] {name_limit} ({torch.cuda.get_device_name(0)}, torch "
             f"{torch.__version__}, CUDA {torch.version.cuda})")
@@ -699,35 +936,37 @@ def main():
                     log(f"[build] {src}: {line.strip()}")
 
         timer = Timer(torch)
-        results = {}
-        results["paged_decode_attention"] = decode_cases(
-            torch, timer, paged_attention, attn_ops, kv_cache, F)
-        results["paged_prefill_attention"] = prefill_cases(
-            torch, timer, paged_attention, attn_ops, kv_cache, F)
+        results = {name: [] for name in kernels.WRAPPERS}
+        t0 = time.perf_counter()
+        for widths, quantized, label, batches, which in (
+                (TINY, False, "tinyllama", (8, 64), 3),
+                (LLAMA7B, True, "llama2-7b int8-kv", (8,), 3),
+                (TINY, True, "tinyllama int8-kv", (8,), 1)):
+            results["paged_decode_attention"] += decode_cases(
+                torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
+                quantized, batches, label)
+            results["paged_prefill_attention"] += prefill_cases(
+                torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
+                quantized, which, label)
+            torch.cuda.empty_cache()
         results["i8i8_matmul"] = i8i8_cases(torch, timer, quant_matmul,
                                             quant_ops)
-        for name, cases in results.items():
-            for c in cases:
-                lib = ("n/a" if c["library_ms"] is None
-                       else f"{c['library_ms']:.4f}")
-                f32 = ("" if "f32_max_abs_err" not in c else
-                       f", f32 max|diff| {c['f32_max_abs_err']:.3g} "
-                       f"(atol/rtol {F32_TOL:g})")
-                log(f"[kernel] {name} {c['case']}: max|diff| "
-                    f"{c['max_abs_err']:.3g} (tol {c['tol']:.3g}){f32}, "
-                    f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-                    f"library {lib} ms, bound {c['bound_ms']:.4f} ms "
-                    f"({c['bound_by']}) on {name_limit}")
+        results["w4a8_matmul"] = w4a8_cases(torch, timer, quant_matmul,
+                                            quant_ops)
         del timer
+        torch.cuda.empty_cache()
+        log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
 
-        for quant in ("none", "online_i8i8"):
-            sx = step_cross_check(torch, port, quant)
+        t0 = time.perf_counter()
+        for quant, widths in (("none", TINY), ("online_i8i8", TINY),
+                              ("online_w4a8", LLAMA7B)):
+            sx = step_cross_check(torch, port, quant, widths)
             sens = ("" if not sx["sensitivity"] else
                     "; 1e-6 attention perturbations move them "
                     + ", ".join(f"{v:.3g}" for v in sx["sensitivity"])
                     + " on cpu")
-            log(f"[step] 2-layer full-width f32 {quant} mixed step, cuda "
-                f"kernels vs cpu plain: logits max|diff| "
+            log(f"[step] 2-layer D={sx['width']} f32 {sx['quant']} mixed "
+                f"step, cuda kernels vs cpu plain: logits max|diff| "
                 f"{sx['logit_max_abs_err']:.3g} (tol {sx['tol']:.3g}; "
                 f"max|logit| {sx['logit_scale']:.3g}{sens}), "
                 f"cache max|diff| {sx['cache_max_abs_err']:.3g} (tol "
@@ -735,16 +974,30 @@ def main():
                 f"tokens cuda {sx['tokens_cuda']} cpu {sx['tokens_cpu']} "
                 f"(equal on {sx['rows_decided']}/{sx['rows']} rows whose "
                 f"top-2 margin exceeds twice the logit error)")
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
+        log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
 
-        e2e = end_to_end(torch, port, name_limit)
+        e2e = {}
+        for label, widths, resource, launched, idle in PATHS:
+            t0 = time.perf_counter()
+            e2e[label] = end_to_end(torch, port, name_limit, label, widths,
+                                    resource, launched, idle)
+            log(f"[phase 5 {label}] {time.perf_counter() - t0:.1f} s")
     except PhaseError as e:
         log(f"FAIL: {e}")
         return 1
 
-    # representative case per kernel: the shapes the e2e run used most
-    main_case = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
-                 "i8i8_matmul": 4}
+    # per kernel: the representative case (the first whose name starts so:
+    # this kernel's heaviest use on the newest path that runs it, bf16 out)
+    # and the path whose run its launch count is read from
+    main_case = {
+        "paged_decode_attention": ("llama2-7b int8-kv B=8",
+                                   "llama2-7b w4a8 int8-kv"),
+        "paged_prefill_attention": ("llama2-7b int8-kv start=0",
+                                    "llama2-7b w4a8 int8-kv"),
+        "i8i8_matmul": ("gate|up T=8 ", "tinyllama i8i8"),
+        "w4a8_matmul": ("gate|up T=8 ", "llama2-7b w4a8 int8-kv"),
+    }
     meta = {
         "paged_decode_attention": (
             "ppl/llm/serving_tpu_torch/csrc/paged_attention.cu",
@@ -755,15 +1008,21 @@ def main():
         "i8i8_matmul": (
             "ppl/llm/serving_tpu_torch/csrc/quant_matmul.cu",
             "ppl/llm/serving_tpu/ops/pallas/quant_matmul.py:253"),
+        "w4a8_matmul": (
+            "ppl/llm/serving_tpu_torch/csrc/quant_matmul.cu",
+            "ppl/llm/serving_tpu/ops/pallas/quant_matmul.py:172"),
     }
     entries = []
     for name, cases in results.items():
-        c = cases[main_case[name]]
+        prefix, path = main_case[name]
+        c = next(c for c in cases if c["case"].startswith(prefix))
         src, rep = meta[name]
         entries.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=e2e["launches"][name], max_abs_err=c["max_abs_err"],
-            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            launches=e2e[path]["launches"][name],
+            launches_by_path={k: v["launches"][name] for k, v in e2e.items()},
+            max_abs_err=c["max_abs_err"], ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             case=c["case"], cases=cases))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -51,8 +51,8 @@ class ModelConfig:
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
 
-    # (8, 8) = int8 with one scale per group of 8 along head_dim;
-    # (0, 1) = unquantized. The port serves (0, 1) only so far.
+    # (8, 8) = int8 with one bf16 scale per group of 8 along head_dim;
+    # (0, 1) = unquantized (the model dtype)
     cache_quant_bit: int = 0
     cache_quant_group: int = 1
 
@@ -83,8 +83,6 @@ class ModelConfig:
                 "(cache_quant_bit, cache_quant_group) must be (8, 8) or (0, 1), "
                 f"got ({self.cache_quant_bit}, {self.cache_quant_group})"
             )
-        if self.cache_quant_bit == 8:
-            raise not_ported("int8 KV (cache_quant_bit=8)")
         if not self.dynamic_batching:
             raise ConfigError("only dynamic_batching=True is supported")
         if self.num_heads % max(self.num_kv_heads, 1) != 0:
@@ -253,7 +251,9 @@ class ResourceConfig:
 
     enable_penalty: bool = False
 
-    quant_method: str = "none"  # "none" | "online_i8i8"
+    # "none" | "online_i8i8" (int8 weights) | "online_w4a8" (group-64
+    # int4 weights); both quantize activations per token to int8
+    quant_method: str = "none"
     quantize_lm_head: bool = False
 
     # step-shape buckets: token counts and batch sizes are padded up to
@@ -277,12 +277,18 @@ class ResourceConfig:
             self.tensor_parallel_size & (self.tensor_parallel_size - 1)
         ):
             raise ConfigError("tensor_parallel_size must be a power of 2")
+        if self.quant_method not in ("none", "online_i8i8",
+                                     "online_w4a8"):
+            raise ConfigError(f"unknown quant_method {self.quant_method}")
+        if (self.quant_method == "online_w4a8"
+                and self.tensor_parallel_size > 1):
+            # the int4 nibble pairing strides D/2 across the whole
+            # contraction axis, so row-parallel shards would unpack to
+            # non-contiguous rows (the JAX package's rule)
+            raise ConfigError("online_w4a8 currently requires "
+                              "tensor_parallel_size == 1")
         if self.tensor_parallel_size > 1:
             raise not_ported("tensor parallelism (tensor_parallel_size>1)")
-        if self.quant_method == "online_w4a8":
-            raise not_ported("online_w4a8")
-        if self.quant_method not in ("none", "online_i8i8"):
-            raise ConfigError(f"unknown quant_method {self.quant_method}")
         if self.multi_step != 1:
             raise not_ported(f"multi-step decode blocks (multi_step="
                              f"{self.multi_step}; use 1)")
@@ -295,4 +301,4 @@ class ResourceConfig:
                              "(weights load as 'random' only)")
         if self.quantize_lm_head and self.quant_method == "none":
             raise ConfigError("quantize_lm_head requires quant_method "
-                              "online_i8i8")
+                              "online_i8i8 or online_w4a8")

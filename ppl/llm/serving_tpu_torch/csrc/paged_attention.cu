@@ -5,12 +5,20 @@
 //       (body _decode_kernel)
 //   K2  ppl/llm/serving_tpu/ops/pallas/paged_attention.py:paged_prefill_attention
 //       (body _prefill_kernel)
-// in their bf16/f32 deferred-append form (no int8 KV, no ALiBi, no block
-// tail: those are later slices).
+// in their deferred-append form, over a bf16/f32 cache or an int8 cache
+// with group-8 scales (no ALiBi, no block tail: those are later slices).
 //
 // Cache layout (ops/kv_cache.py): [KVH, L*num_slots, 2*shd] packed rows,
 // k in lanes [0, hd), v in lanes [shd, shd+hd); layer l's slot s is row
-// l*num_slots + s; slot = page*page_size + offset.
+// l*num_slots + s; slot = page*page_size + offset. An int8 cache has bf16
+// scale rows [L*num_slots, scale_lanes], one per slot, lane order (head,
+// k|v, group): head h's k group scales start at lane h*2*(hd/8), its v
+// group scales hd/8 lanes later. The Pallas kernels dequantize a page
+// with a one-hot matmul in bf16; here each 16-byte load of 16 int8 lanes
+// takes its two group scales with one 4-byte load and is dequantized in
+// f32 on its way into shared memory (int8 x bf16 is exact in f32), so the
+// rest of each kernel is the same for every cache type. An int8 page
+// moves half the bytes of a bf16 one, plus 1/4 of that again in scales.
 //
 // What bounds them on an H100: bytes. Decode attention reads every cached
 // K/V byte of the batch once and does 4 flops per cached element per query
@@ -43,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,6 +88,29 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  // byte j of word i, sign-extended: shift the unsigned word so the byte
+  // is on top, then shift the int arithmetically back down
+  __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[4 * i + j] = (float)((int32_t)(w[i] << (24 - 8 * j)) >> 24);
+  }
+};
+
+constexpr int kKvGroup = 8;  // int8 KV: one scale per 8 lanes
+
+// Scale rows of an int8 cache (or fresh slab): base pointer, row stride
+// in lanes, and this head's lane offset. Unused for a bf16/f32 cache.
+struct ScaleRows {
+  const __nv_bfloat16* rows;
+  int lanes;
+  int head_off;
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -93,13 +126,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Load `cn` (<= ch) K|V rows of positions [c0, c0+cn) into kv_s[ch][2*hd+1]
 // as f32 (k at [0, hd), v at [hd, 2*hd)); rows >= cn are zero-filled.
 // Position p comes from the fresh slab (row p - start) when p >= fresh_from,
-// from the paged cache otherwise.
-template <typename T>
+// from the paged cache otherwise. An int8 row (TC = int8_t) is scaled by
+// the group scales of the same row in `cs` (cache) or `fs` (fresh slab).
+template <typename TC>
 __device__ __forceinline__ void load_kv_chunk(
     float* kv_s, int ch, int c0, int cn, int hd, int shd,
-    const T* __restrict__ cache_h, const int* __restrict__ pt, int P, int ps,
-    long long lbase, const T* __restrict__ fresh, int fresh_from) {
-  constexpr int V = Vec16<T>::N;
+    const TC* __restrict__ cache_h, ScaleRows cs, const int* __restrict__ pt,
+    int P, int ps, long long lbase, const TC* __restrict__ fresh,
+    ScaleRows fs, int fresh_from) {
+  constexpr int V = Vec16<TC>::N;
   const int lanes = 2 * shd;
   const int kvs = 2 * hd + 1;
   const int hvec = hd / V;  // 16-byte vectors per half row
@@ -111,17 +146,31 @@ __device__ __forceinline__ void load_kv_chunk(
     float vals[V];
     if (t < cn) {
       const int pos = c0 + t;
-      const T* row;
+      const TC* row;
+      const __nv_bfloat16* srow = nullptr;
       if (fresh != nullptr && pos >= fresh_from) {
         row = fresh + (size_t)(pos - fresh_from) * lanes;
+        if constexpr (std::is_same<TC, int8_t>::value)
+          srow = fs.rows + (size_t)(pos - fresh_from) * fs.lanes + fs.head_off;
       } else {
         int pidx = pos / ps;
         pidx = pidx < P ? pidx : P - 1;
         const long long slot = lbase + (long long)pt[pidx] * ps + (pos - (pos / ps) * ps);
         row = cache_h + (size_t)slot * lanes;
+        if constexpr (std::is_same<TC, int8_t>::value)
+          srow = cs.rows + (size_t)slot * cs.lanes + cs.head_off;
       }
       const uint4 u = reinterpret_cast<const uint4*>(row + half * shd)[jj];
-      Vec16<T>::unpack(u, vals);
+      Vec16<TC>::unpack(u, vals);
+      if constexpr (std::is_same<TC, int8_t>::value) {
+        // the vector's 16 lanes are groups 2*jj and 2*jj+1 of this half
+        const uint32_t sw = *reinterpret_cast<const uint32_t*>(
+            srow + half * (hd / kKvGroup) + 2 * jj);
+        const float s0 = __uint_as_float(sw << 16);
+        const float s1 = __uint_as_float(sw & 0xffff0000u);
+#pragma unroll
+        for (int i = 0; i < V; ++i) vals[i] *= i < kKvGroup ? s0 : s1;
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) vals[i] = 0.f;
@@ -136,9 +185,10 @@ __device__ __forceinline__ void load_kv_chunk(
 
 constexpr int kDecMaxOut = 8;  // per-thread outputs: G*hd <= 8 * 256
 
-template <typename T>
+template <typename T, typename TC>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ cache,
+    const T* __restrict__ q, const TC* __restrict__ cache,
+    const __nv_bfloat16* __restrict__ scale, int scale_lanes,
     const int* __restrict__ page_table, const int* __restrict__ ctx,
     const T* __restrict__ fk, const T* __restrict__ fv, T* __restrict__ out,
     int Hq, int KVH, int hd, int shd, int P, int ps, long long LS,
@@ -173,12 +223,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   for (int j = 0; j < kDecMaxOut; ++j) acc[j] = 0.f;
   __syncthreads();
 
-  const T* cache_h = cache + (size_t)h * LS * (2 * shd);
+  const TC* cache_h = cache + (size_t)h * LS * (2 * shd);
+  const ScaleRows cs{scale, scale_lanes, h * 2 * (hd / kKvGroup)};
   const int* pt = page_table + (size_t)b * P;
   for (int c0 = 0; c0 < n; c0 += CH) {
     const int cn = min(CH, n - c0);
-    load_kv_chunk<T>(kv_s, CH, c0, cn, hd, shd, cache_h, pt, P, ps, lbase,
-                     nullptr, 0);
+    load_kv_chunk<TC>(kv_s, CH, c0, cn, hd, shd, cache_h, cs, pt, P, ps,
+                      lbase, nullptr, cs, 0);
     __syncthreads();
     for (int e = tid; e < G * CH; e += nt) {
       const int g = e / CH, t = e - g * CH;
@@ -263,11 +314,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 constexpr int kRows = 64;   // query rows (position, head) per CTA
 constexpr int kChunk = 64;  // keys per chunk
 
-template <typename T, int HD>
+template <typename T, typename TC, int HD>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ cache,
+    const T* __restrict__ q, const TC* __restrict__ cache,
+    const __nv_bfloat16* __restrict__ scale, int scale_lanes,
     const int* __restrict__ page_table, const int* __restrict__ start_p,
-    const int* __restrict__ newlen_p, const T* __restrict__ fresh_kv,
+    const int* __restrict__ newlen_p, const TC* __restrict__ fresh_kv,
+    const __nv_bfloat16* __restrict__ fresh_scale,
     T* __restrict__ out, int Qp, int Hq, int KVH, int shd, int P, int ps,
     long long LS, long long lbase, int QB, float sm_scale) {
   extern __shared__ float smem[];
@@ -323,15 +376,19 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   // per-thread score tile: rows sr + 16*i, keys sk + 16*j
   const int sr = tid >> 4, sk = tid & 15;
   const int kv_hi = min(ctx, q0 + QB);
-  const T* cache_h = cache + (size_t)h * LS * (2 * shd);
-  const T* fresh_h = fresh_kv + ((size_t)b * KVH + h) * (size_t)Qp * (2 * shd);
+  const TC* cache_h = cache + (size_t)h * LS * (2 * shd);
+  const TC* fresh_h = fresh_kv + ((size_t)b * KVH + h) * (size_t)Qp * (2 * shd);
+  const int head_off = h * 2 * (HD / kKvGroup);
+  const ScaleRows cs{scale, scale_lanes, head_off};
+  const ScaleRows fs{fresh_scale + (fresh_scale ? (size_t)b * Qp * scale_lanes : 0),
+                     scale_lanes, head_off};
   const int* pt = page_table + (size_t)b * P;
   __syncthreads();
 
   for (int c0 = 0; c0 < kv_hi; c0 += kChunk) {
     const int cn = min(kChunk, kv_hi - c0);
-    load_kv_chunk<T>(kv_s, kChunk, c0, cn, HD, shd, cache_h, pt, P, ps, lbase,
-                     fresh_h, start);
+    load_kv_chunk<TC>(kv_s, kChunk, c0, cn, HD, shd, cache_h, cs, pt, P, ps,
+                      lbase, fresh_h, fs, start);
     __syncthreads();
     {
       float s[4][4];
@@ -417,58 +474,64 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
-int launch_decode(const void* q, const void* cache, const int* pt, const int* ctx,
-                  const void* fk, const void* fv, void* out, int B, int Hq,
-                  int KVH, int hd, int shd, int P, int ps, long long LS,
-                  int layer, long long num_slots, int CH, float sm_scale,
-                  void* stream) {
-  const int G = Hq / KVH;
+// Everything a launch needs besides the kernel's own shapes.
+struct Args {
+  const void* q;
+  const void* cache;
+  const __nv_bfloat16* scale;
+  int scale_lanes;
+  const int* pt;
+  void* out;
+  int Hq, KVH, hd, shd, P, ps;
+  long long LS, lbase;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename TC>
+int launch_decode(const Args& a, const int* ctx, const void* fk,
+                  const void* fv, int B, int CH) {
+  const int G = a.Hq / a.KVH;
   const size_t smem = sizeof(float) *
-      ((size_t)G * hd + (size_t)CH * (2 * hd + 1) + (size_t)G * CH + 3 * G);
-  cudaError_t err = allow_smem(paged_decode_kernel<T>, smem);
+      ((size_t)G * a.hd + (size_t)CH * (2 * a.hd + 1) + (size_t)G * CH + 3 * G);
+  cudaError_t err = allow_smem(paged_decode_kernel<T, TC>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KVH);
-  paged_decode_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)cache, pt, ctx, (const T*)fk, (const T*)fv,
-      (T*)out, Hq, KVH, hd, shd, P, ps, LS, (long long)layer * num_slots, CH,
-      sm_scale);
+  dim3 grid(B, a.KVH);
+  paged_decode_kernel<T, TC><<<grid, kThreads, smem, a.stream>>>(
+      (const T*)a.q, (const TC*)a.cache, a.scale, a.scale_lanes, a.pt, ctx,
+      (const T*)fk, (const T*)fv, (T*)a.out, a.Hq, a.KVH, a.hd, a.shd, a.P,
+      a.ps, a.LS, a.lbase, CH, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_prefill_hd(const void* q, const void* cache, const int* pt,
-                      const int* start, const int* new_len, const void* fresh,
-                      void* out, int Bp, int Qp, int Hq, int KVH, int shd,
-                      int P, int ps, long long LS, int layer,
-                      long long num_slots, float sm_scale, void* stream) {
-  const int G = Hq / KVH;
+template <typename T, typename TC, int HD>
+int launch_prefill_hd(const Args& a, const int* start, const int* new_len,
+                      const void* fresh, const __nv_bfloat16* fresh_scale,
+                      int Bp, int Qp) {
+  const int G = a.Hq / a.KVH;
   const int QB = kRows / G;
   const size_t smem = sizeof(float) *
       ((size_t)kRows * HD + (size_t)kChunk * (2 * HD + 1) +
        (size_t)kRows * (kChunk + 1) + 3 * kRows);
-  cudaError_t err = allow_smem(paged_prefill_kernel<T, HD>, smem);
+  cudaError_t err = allow_smem(paged_prefill_kernel<T, TC, HD>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(Bp, (Qp + QB - 1) / QB, KVH);
-  paged_prefill_kernel<T, HD><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)cache, pt, start, new_len, (const T*)fresh,
-      (T*)out, Qp, Hq, KVH, shd, P, ps, LS, (long long)layer * num_slots, QB,
-      sm_scale);
+  dim3 grid(Bp, (Qp + QB - 1) / QB, a.KVH);
+  paged_prefill_kernel<T, TC, HD><<<grid, kThreads, smem, a.stream>>>(
+      (const T*)a.q, (const TC*)a.cache, a.scale, a.scale_lanes, a.pt, start,
+      new_len, (const TC*)fresh, fresh_scale, (T*)a.out, Qp, a.Hq, a.KVH,
+      a.shd, a.P, a.ps, a.LS, a.lbase, QB, a.sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_prefill(const void* q, const void* cache, const int* pt,
-                   const int* start, const int* new_len, const void* fresh,
-                   void* out, int Bp, int Qp, int Hq, int KVH, int hd, int shd,
-                   int P, int ps, long long LS, int layer, long long num_slots,
-                   float sm_scale, void* stream) {
+template <typename T, typename TC>
+int launch_prefill(const Args& a, const int* start, const int* new_len,
+                   const void* fresh, const __nv_bfloat16* fresh_scale,
+                   int Bp, int Qp) {
 #define PPL_PREFILL_CASE(HDV)                                                   \
   case HDV:                                                                     \
-    return launch_prefill_hd<T, HDV>(q, cache, pt, start, new_len, fresh, out,  \
-                                     Bp, Qp, Hq, KVH, shd, P, ps, LS, layer,    \
-                                     num_slots, sm_scale, stream);
-  switch (hd) {
+    return launch_prefill_hd<T, TC, HDV>(a, start, new_len, fresh,              \
+                                         fresh_scale, Bp, Qp);
+  switch (a.hd) {
     PPL_PREFILL_CASE(16)
     PPL_PREFILL_CASE(32)
     PPL_PREFILL_CASE(64)
@@ -481,46 +544,54 @@ int launch_prefill(const void* q, const void* cache, const int* pt,
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
-// Every function returns the cudaError_t of its launch (0 = success).
+// Plain C interface (loaded with ctypes). dtype (of q, the output and the
+// decode self-term): 0 = float32, 1 = bfloat16. quant: 0 = the cache has
+// q's dtype, 1 = int8 cache with bf16 scale rows. Every function returns
+// the cudaError_t of its launch (0 = success).
 extern "C" {
 
-int ppl_paged_decode_attention(int dtype, const void* q, const void* cache,
-                               const int* page_table, const int* ctx,
-                               const void* fresh_k, const void* fresh_v,
-                               void* out, int B, int Hq, int KVH, int hd,
-                               int shd, int P, int page_size,
+int ppl_paged_decode_attention(int dtype, int quant, const void* q,
+                               const void* cache, const void* scale,
+                               int scale_lanes, const int* page_table,
+                               const int* ctx, const void* fresh_k,
+                               const void* fresh_v, void* out, int B, int Hq,
+                               int KVH, int hd, int shd, int P, int page_size,
                                long long ls_rows, int layer,
                                long long num_slots, int chunk, float sm_scale,
                                void* stream) {
+  const Args a{q, cache, (const __nv_bfloat16*)scale, scale_lanes, page_table,
+               out, Hq, KVH, hd, shd, P, page_size, ls_rows,
+               (long long)layer * num_slots, sm_scale, (cudaStream_t)stream};
   if (dtype == 0)
-    return launch_decode<float>(q, cache, page_table, ctx, fresh_k, fresh_v,
-                                out, B, Hq, KVH, hd, shd, P, page_size,
-                                ls_rows, layer, num_slots, chunk, sm_scale,
-                                stream);
-  return launch_decode<__nv_bfloat16>(q, cache, page_table, ctx, fresh_k,
-                                      fresh_v, out, B, Hq, KVH, hd, shd, P,
-                                      page_size, ls_rows, layer, num_slots,
-                                      chunk, sm_scale, stream);
+    return quant ? launch_decode<float, int8_t>(a, ctx, fresh_k, fresh_v, B, chunk)
+                 : launch_decode<float, float>(a, ctx, fresh_k, fresh_v, B, chunk);
+  return quant
+      ? launch_decode<__nv_bfloat16, int8_t>(a, ctx, fresh_k, fresh_v, B, chunk)
+      : launch_decode<__nv_bfloat16, __nv_bfloat16>(a, ctx, fresh_k, fresh_v, B,
+                                                    chunk);
 }
 
-int ppl_paged_prefill_attention(int dtype, const void* q, const void* cache,
-                                const int* page_table, const int* start,
-                                const int* new_len, const void* fresh_kv,
+int ppl_paged_prefill_attention(int dtype, int quant, const void* q,
+                                const void* cache, const void* scale,
+                                int scale_lanes, const int* page_table,
+                                const int* start, const int* new_len,
+                                const void* fresh_kv, const void* fresh_scale,
                                 void* out, int Bp, int Qp, int Hq, int KVH,
                                 int hd, int shd, int P, int page_size,
                                 long long ls_rows, int layer,
                                 long long num_slots, float sm_scale,
                                 void* stream) {
+  const Args a{q, cache, (const __nv_bfloat16*)scale, scale_lanes, page_table,
+               out, Hq, KVH, hd, shd, P, page_size, ls_rows,
+               (long long)layer * num_slots, sm_scale, (cudaStream_t)stream};
+  const __nv_bfloat16* fs = (const __nv_bfloat16*)fresh_scale;
   if (dtype == 0)
-    return launch_prefill<float>(q, cache, page_table, start, new_len,
-                                 fresh_kv, out, Bp, Qp, Hq, KVH, hd, shd, P,
-                                 page_size, ls_rows, layer, num_slots,
-                                 sm_scale, stream);
-  return launch_prefill<__nv_bfloat16>(q, cache, page_table, start, new_len,
-                                       fresh_kv, out, Bp, Qp, Hq, KVH, hd,
-                                       shd, P, page_size, ls_rows, layer,
-                                       num_slots, sm_scale, stream);
+    return quant ? launch_prefill<float, int8_t>(a, start, new_len, fresh_kv, fs, Bp, Qp)
+                 : launch_prefill<float, float>(a, start, new_len, fresh_kv, fs, Bp, Qp);
+  return quant
+      ? launch_prefill<__nv_bfloat16, int8_t>(a, start, new_len, fresh_kv, fs, Bp, Qp)
+      : launch_prefill<__nv_bfloat16, __nv_bfloat16>(a, start, new_len, fresh_kv,
+                                                     fs, Bp, Qp);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ the ``fetch_plan_result`` reorder, ``padded_prefill_tokens`` and
 
 - the step runs eagerly (one ``make_step_fn`` per greedy/sampled variant;
   there is nothing to compile per bucket),
-- the KV cache and the penalty count map are preallocated once and every
-  step updates them in place (the JAX package donates them instead),
+- the KV cache (with its bf16 scale rows under int8 KV) and the penalty
+  count map are preallocated once and every step updates them in place
+  (the JAX package donates them instead),
 - the plan goes down as one packed int32 buffer, copied from pinned
   memory without blocking, and the sampled tokens come back the same way
   into pinned host buffers behind a CUDA event that
@@ -104,7 +105,7 @@ class LLMEngine:
         self._seed = rng_seed
         self._step_counter = 0
 
-        self.kv_cache = kv_ops.init_cache(spec, self.device)
+        self.kv_cache, self.kv_scale = kv_ops.init_cache(spec, self.device)
         if enable_penalty:
             self.count_map = sampling_ops.init_count_map(
                 max_batch_slots, model_cfg.vocab_size, self.device)
@@ -188,6 +189,7 @@ class LLMEngine:
             fn = llama.make_step_fn(
                 self.model_cfg, self.spec,
                 enable_penalty=self.enable_penalty,
+                quant_method=self.resource_cfg.quant_method,
                 top_k_cap=self.top_k_cap, greedy_only=greedy)
             self._steps[greedy] = fn
         return fn
@@ -364,7 +366,8 @@ class LLMEngine:
         t1 = time.perf_counter_ns()
 
         out = self._get_step(greedy)(self._params, self.kv_cache,
-                                     self.count_map, inp, gumbel)
+                                     self.kv_scale, self.count_map, inp,
+                                     gumbel)
         toks = torch.empty((1, b), dtype=torch.int32, pin_memory=cuda)
         lps = torch.empty((1, b), dtype=torch.float32, pin_memory=cuda)
         toks[0].copy_(out.tokens, non_blocking=cuda)
@@ -486,12 +489,18 @@ def compute_kv_cache_max_tokens(model_cfg: ModelConfig,
                                 free_bytes: int) -> int:
     """``kv_cache_max_tokens = max_tokens_scale * free / block_bytes``
     (``resource_manager.cc:329-342``); block = K+V across layers at the
-    cache's element size."""
+    cache's element size: 1 byte under int8 KV, plus one bf16 scale per
+    group, as the JAX package counts them."""
     if resource_cfg.kv_cache_max_tokens:
         return resource_cfg.kv_cache_max_tokens
-    elem = torch.finfo(llama.torch_dtype(model_cfg.dtype)).bits // 8
+    int8 = model_cfg.cache_quant_bit == 8
+    elem = 1 if int8 else torch.finfo(
+        llama.torch_dtype(model_cfg.dtype)).bits // 8
     block = (model_cfg.num_layers * 2 * model_cfg.num_kv_heads
              * model_cfg.head_dim * elem)
+    if int8:
+        block += (model_cfg.num_layers * 2 * model_cfg.num_kv_heads
+                  * model_cfg.head_dim // model_cfg.cache_quant_group * 2)
     if free_bytes <= 0 or block <= 0:
         return 16384  # CPU default
     return int(resource_cfg.max_tokens_scale * free_bytes / block)

@@ -6,21 +6,28 @@ call processes a mixed continuous batch
     flat tokens = [ Bd decode tokens | Bp x Qp padded prefill tokens ]
 
 - dense matmuls run on the flat [T, D] layout; with ``online_i8i8``
-  they are the K3 kernel (:mod:`..ops.kernels.quant_matmul`),
+  they are the K3 kernel, with ``online_w4a8`` the K4 kernel
+  (:mod:`..ops.kernels.quant_matmul`),
 - attention splits into decode rows (K1, the current token as a
   self-term) and prefill rows (K2, this step's K/V read from the packed
   fresh slab), both reading the paged cache in place,
-- after the last layer ONE in-place write lands every layer's new K/V in
-  the cache, then final norm, lm_head, penalties and sampling.
+- with int8 KV each layer's new K/V is quantized once into int8 rows and
+  bf16 scale rows; the prefill rows' slice of them is K2's fresh slab,
+  and the decode self-term stays unquantized,
+- after the last layer ONE in-place write lands every layer's new K/V
+  (and scale rows) in the cache, then final norm, lm_head, penalties and
+  sampling.
 
 The weights keep the JAX package's fused layouts, so its parameters
 convert one to one (:func:`params_from_jax`):
 
     wqkv:      [D, KVH, G+2, hd]  (per kv head: G q columns, k, v)
-    w_gate_up: [D, 2, I]          (quantized: C-leading [2, D, I])
+    w_gate_up: [D, 2, I]          (quantized: C-leading [2, D, I];
+                                   w4a8: packed [2, D/2, I], scales
+                                   [2, D/64, I])
 
 PyTorch runs the step eagerly: the engine calls it on preallocated
-cache and count-map tensors, which it updates in place.
+cache, scale-row and count-map tensors, which it updates in place.
 """
 
 from __future__ import annotations
@@ -119,7 +126,8 @@ def params_from_jax(np_params: Dict[str, Any], device,
                     dtype=torch.float32) -> Dict[str, Any]:
     """The JAX package's parameter pytree (leaves as numpy arrays) ->
     the port's parameters. Float weights become ``dtype``; quantized
-    ``*_q`` (int8) stay int8 and their ``*_s`` scales stay float32."""
+    ``*_q`` (int8, or packed int4 in int8 bytes) are carried across
+    unchanged and their ``*_s`` scales stay float32."""
     def conv(name, a):
         if name.endswith("_s"):
             return _to_torch(a, device, torch.float32)
@@ -153,54 +161,69 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
     return out.to(x.dtype)
 
 
+_QUANTIZERS = {
+    "online_i8i8": lambda w: quant_ops.quantize_weight(w, contract_axis=0),
+    "online_w4a8": quant_ops.quantize_weight_int4,
+}
+
+
 def quantize_model_params(params: Dict[str, Any],
                           method: str = "online_i8i8",
                           quantize_lm_head: bool = False) -> Dict[str, Any]:
-    """Each transformer matmul weight becomes (<name>_q int8, <name>_s f32
-    per-output-channel scales); the fused gate|up goes C-leading
-    [2, D, I]. Embedding, norms and (unless asked) lm_head stay float.
+    """Each transformer matmul weight becomes (<name>_q, <name>_s): int8
+    with f32 per-output-channel scales (``online_i8i8``), or packed int4
+    with f32 group-64 scales (``online_w4a8``). The fused gate|up goes
+    C-leading: [2, D, I] (int4: packed [2, D/2, I] and scales
+    [2, G, I]). Embedding, norms and (unless asked) lm_head stay float.
     The float originals are dropped as their copies are made."""
-    if method != "online_i8i8":
-        raise ValueError(f"{method} is not yet ported to serving_tpu_torch")
+    quantize = _QUANTIZERS[method]
     new_layers = []
     for lp in params["layers"]:
         nl = {k: v for k, v in lp.items()
               if k not in ("wqkv", "wo", "w_gate_up", "w_down")}
         for name in ("wqkv", "wo", "w_gate_up", "w_down"):
-            q, s = quant_ops.quantize_weight(lp[name], contract_axis=0)
+            q, s = quantize(lp[name])
             if q.ndim == 3:
                 q = q.permute(1, 0, 2)
-                s = s.contiguous()
+                if s.ndim == 3:
+                    s = s.permute(1, 0, 2)
             nl[name + "_q"] = q.contiguous()
             nl[name + "_s"] = s.contiguous()
         new_layers.append(nl)
     out = dict(params)
     out["layers"] = new_layers
     if quantize_lm_head:
-        q, s = quant_ops.quantize_weight(params["lm_head"], contract_axis=0)
+        q, s = quantize(params["lm_head"])
         out["lm_head_q"] = q.contiguous()
         out["lm_head_s"] = s.contiguous()
         del out["lm_head"]
     return out
 
 
-def _matmul(h: torch.Tensor, p: Dict[str, Any], name: str,
-            out_dtype: torch.dtype) -> torch.Tensor:
-    """Float or i8i8 matmul of h [T, D] with the weight ``name`` (plain
-    contract [D, ...out] -> [T, ...out]; fused [C, D, N] -> [C, T, N])."""
-    if name + "_q" in p:
-        return qmm_kernels.i8i8_matmul(h, p[name + "_q"], p[name + "_s"],
-                                       out_dtype=out_dtype)
-    w = p[name]
-    out = torch.matmul(h, w.reshape(w.shape[0], -1))
-    return out.reshape((h.shape[0],) + tuple(w.shape[1:])).to(out_dtype)
+def _make_matmul(quant_method: str):
+    """The transformer matmul of ``quant_method``: ``matmul(h, p, name,
+    out_dtype)`` of h [T, D] with the weight ``name`` (plain contract
+    [D, ...out] -> [T, ...out]; fused [C, D, N] -> [C, T, N])."""
+    kernel = {"online_i8i8": qmm_kernels.i8i8_matmul,
+              "online_w4a8": qmm_kernels.w4a8_matmul}.get(quant_method)
+    if kernel is not None:
+        def matmul(h, p, name, out_dtype):
+            return kernel(h, p[name + "_q"], p[name + "_s"],
+                          out_dtype=out_dtype)
+        return matmul
+
+    def matmul(h, p, name, out_dtype):
+        w = p[name]
+        out = torch.matmul(h, w.reshape(w.shape[0], -1))
+        return out.reshape((h.shape[0],) + tuple(w.shape[1:])).to(out_dtype)
+    return matmul
 
 
-def _gate_up_act(h: torch.Tensor, p: Dict[str, Any],
+def _gate_up_act(matmul, h: torch.Tensor, p: Dict[str, Any],
                  out_dtype: torch.dtype) -> torch.Tensor:
     """silu(gate) * up from the fused gate|up weight."""
     if "w_gate_up_q" in p:
-        gu = _matmul(h, p, "w_gate_up", out_dtype)        # [2, T, I]
+        gu = matmul(h, p, "w_gate_up", out_dtype)         # [2, T, I]
         return torch.nn.functional.silu(gu[0]) * gu[1]
     w = p["w_gate_up"]                                    # [D, 2, I]
     gu = torch.matmul(h, w.reshape(w.shape[0], -1)).to(torch.float32)
@@ -211,26 +234,44 @@ def _gate_up_act(h: torch.Tensor, p: Dict[str, Any],
 def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                  enable_penalty: bool = False,
                  return_logits: bool = False,
+                 quant_method: str = "none",
                  top_k_cap: int = 0,
                  greedy_only: bool = False):
     """Build the fused forward+sample step for one model configuration.
 
-    ``step(params, kv_cache, count_map, inp, gumbel)`` writes this step's
-    K/V into ``kv_cache`` and, with penalties on, its tokens into
-    ``count_map``, both in place, and returns a :class:`StepOutput`.
+    ``step(params, kv_cache, kv_scale, count_map, inp, gumbel)`` writes
+    this step's K/V into ``kv_cache`` (and, with int8 KV, their scale rows
+    into ``kv_scale``; None otherwise) and, with penalties on, its tokens
+    into ``count_map``, all in place, and returns a :class:`StepOutput`.
     ``gumbel`` is the [B, C] noise of the sampled rows (C = top_k_cap, or
     the vocab when uncapped); None when ``greedy_only``.
 
-    Whether the weights are quantized follows the parameters (``*_q``
-    keys), as the JAX step's lm_head does.
+    The matmuls follow ``quant_method`` ("none", "online_i8i8",
+    "online_w4a8"), as the JAX step's do; whether lm_head is quantized
+    follows the parameters (an ``lm_head_q`` key).
     """
     n_q, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = n_q // n_kv
     eps, theta = cfg.norm_eps, cfg.rope_theta
     compute_dtype = torch_dtype(cfg.dtype)
     cache_dt = spec.dtype
+    matmul = _make_matmul(quant_method)
 
-    def step(params, kv_cache: torch.Tensor, count_map: torch.Tensor,
+    def prep_new_kv(k, v):
+        """This layer's new K/V as packed rows in the cache dtype
+        [T, KVH, 2*shd] and, with int8 KV, their scale rows
+        [T, scale_lanes] (else None): the bytes the end-of-step write
+        lands, built once per layer."""
+        if not spec.quantized:
+            return kv_ops.pack_kv_rows(k.to(cache_dt), v.to(cache_dt),
+                                       spec), None
+        qk, sk = kv_ops.quantize_kv(k, spec.quant_group)
+        qv, sv = kv_ops.quantize_kv(v, spec.quant_group)
+        return (kv_ops.pack_kv_rows(qk, qv, spec),
+                kv_ops.pack_scale_rows(sk, sv, spec))
+
+    def step(params, kv_cache: torch.Tensor,
+             kv_scale: Optional[torch.Tensor], count_map: torch.Tensor,
              inp: StepInput, gumbel: Optional[torch.Tensor] = None
              ) -> StepOutput:
         dev = kv_cache.device
@@ -267,22 +308,23 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
 
         x = params["embedding"][flat_tokens.long()].to(compute_dtype)
 
-        new_rows = []
+        new_rows, new_srows = [], []
         for li, p in enumerate(params["layers"]):
             h = rms_norm(x, p["attn_norm"], eps)
             t = x.shape[0]
-            qkv = _matmul(h, p, "wqkv", compute_dtype)   # [T, KVH, G+2, hd]
+            qkv = matmul(h, p, "wqkv", compute_dtype)    # [T, KVH, G+2, hd]
             q = qkv[:, :, :g, :].reshape(t, n_q, hd)
             k = qkv[:, :, g, :]
             v = qkv[:, :, g + 1, :]
             q = apply_rope(q, flat_pos, theta)
             k = apply_rope(k, flat_pos, theta)
-            rows = kv_ops.pack_kv_rows(k.to(cache_dt), v.to(cache_dt), spec)
+            rows, srows = prep_new_kv(k, v)
             new_rows.append(rows)
+            new_srows.append(srows)
             if bd:
                 attn_d = attn_kernels.paged_decode_attention(
-                    q[:bd].contiguous(), kv_cache, pt_decode, ctx_decode,
-                    spec, layer=li, fresh_k=k[:bd].contiguous(),
+                    q[:bd].contiguous(), kv_cache, kv_scale, pt_decode,
+                    ctx_decode, spec, layer=li, fresh_k=k[:bd].contiguous(),
                     fresh_v=v[:bd].contiguous())
             else:
                 attn_d = q.new_zeros((0, n_q, hd))
@@ -291,25 +333,29 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                 # rows the end-of-step write lands
                 fslab = rows[bd:].reshape(bp, qp, n_kv, -1).permute(
                     0, 2, 1, 3).contiguous()
+                fscale = (srows[bd:].reshape(bp, qp, -1)
+                          if spec.quantized else None)
                 attn_p = attn_kernels.paged_prefill_attention(
                     q[bd:].reshape(bp, qp, n_q, hd).contiguous(), kv_cache,
-                    pt_prefill, inp.prefill_start, inp.prefill_len, spec,
-                    layer=li, fresh_kv=fslab)
+                    kv_scale, pt_prefill, inp.prefill_start,
+                    inp.prefill_len, spec, layer=li, fresh_kv=fslab,
+                    fresh_scale=fscale)
             else:
                 attn_p = q.new_zeros((0, qp, n_q, hd))
             attn = torch.cat([attn_d.reshape(bd, n_q * hd),
                               attn_p.reshape(bp * qp, n_q * hd)])
-            o = _matmul(attn, p, "wo", compute_dtype)
+            o = matmul(attn, p, "wo", compute_dtype)
             x = x + o.to(compute_dtype)
 
             h = rms_norm(x, p["ffn_norm"], eps)
-            act = _gate_up_act(h, p, compute_dtype)
-            down = _matmul(act.to(compute_dtype).contiguous(), p, "w_down",
-                           compute_dtype)
+            act = _gate_up_act(matmul, h, p, compute_dtype)
+            down = matmul(act.to(compute_dtype).contiguous(), p, "w_down",
+                          compute_dtype)
             x = x + down.to(compute_dtype)
 
-        kv_ops.append_kv_rows_block(kv_cache, torch.stack(new_rows), slots,
-                                    spec)
+        kv_ops.append_kv_rows_block(
+            kv_cache, kv_scale, torch.stack(new_rows),
+            torch.stack(new_srows) if spec.quantized else None, slots, spec)
 
         x = rms_norm(x, params["final_norm"], eps)
         last_idx = torch.cat([
@@ -319,7 +365,7 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
         ])
         hidden = x[last_idx.long()].contiguous()
         if "lm_head_q" in params:
-            logits = _matmul(hidden, params, "lm_head", torch.float32)
+            logits = matmul(hidden, params, "lm_head", torch.float32)
         else:
             logits = torch.matmul(hidden, params["lm_head"]).to(
                 torch.float32)

@@ -16,6 +16,12 @@ Contracts (per layer):
   position ``start``; causal within the new tokens, full visibility of
   the cached prefix. Deferred mode (``fresh_k/v`` given): positions
   ``>= start`` read the fresh tensors instead of the cache.
+
+With int8 KV, ``scale`` holds the cache's bf16 group-scale rows and the
+pages are dequantized as they are gathered; without, it is None. The
+decode self-term is the current token's unquantized k/v; the prefill
+caller passes this step's k/v already round-tripped through int8, as the
+kernel reads them (the JAX package's ``models/llama.py`` does the same).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ def _gqa_expand(x: torch.Tensor, num_q_heads: int) -> torch.Tensor:
 def decode_attention_ref(
     q: torch.Tensor,                 # [B, q_heads, head_dim]
     cache: torch.Tensor,             # [kv_heads, L*num_slots, 2*shd]
+    scale: Optional[torch.Tensor],   # [L*num_slots, scale_lanes] if int8
     page_table: torch.Tensor,        # i32[B, P]
     context_len: torch.Tensor,       # i32[B] kv length incl. this token
     spec: CacheSpec,
@@ -49,7 +56,7 @@ def decode_attention_ref(
     fresh_v: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:                   # [B, q_heads, head_dim]
     b, num_q_heads, head_dim = q.shape
-    k, v = gather_pages(cache, page_table, spec, q.dtype, layer)
+    k, v = gather_pages(cache, scale, page_table, spec, q.dtype, layer)
     cached_len = context_len
     if fresh_k is not None:
         cached_len = context_len - 1
@@ -78,6 +85,7 @@ def decode_attention_ref(
 def prefill_attention_ref(
     q: torch.Tensor,                 # [Bp, Qp, q_heads, head_dim]
     cache: torch.Tensor,             # [kv_heads, L*num_slots, 2*shd]
+    scale: Optional[torch.Tensor],   # [L*num_slots, scale_lanes] if int8
     page_table: torch.Tensor,        # i32[Bp, P]
     start: torch.Tensor,             # i32[Bp] abs pos of first new token
     new_len: torch.Tensor,           # i32[Bp] valid new tokens per row
@@ -87,7 +95,7 @@ def prefill_attention_ref(
     fresh_v: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:                   # [Bp, Qp, q_heads, head_dim]
     bp, qp, num_q_heads, head_dim = q.shape
-    k, v = gather_pages(cache, page_table, spec, q.dtype, layer)
+    k, v = gather_pages(cache, scale, page_table, spec, q.dtype, layer)
     dev = q.device
     if fresh_k is not None:
         kv_len_g = k.shape[1]

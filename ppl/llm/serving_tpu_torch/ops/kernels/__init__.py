@@ -11,6 +11,7 @@ WRAPPERS = {
     "paged_decode_attention": paged_attention.paged_decode_attention,
     "paged_prefill_attention": paged_attention.paged_prefill_attention,
     "i8i8_matmul": quant_matmul.i8i8_matmul,
+    "w4a8_matmul": quant_matmul.w4a8_matmul,
 }
 
 

@@ -13,6 +13,12 @@ decode takes the current token's k/v as ``fresh_k/fresh_v`` and writes
 zeros for rows with ``context_len == 0``; prefill takes this step's K/V
 as the packed ``fresh_kv`` slab ``[Bp, KVH, Qp, 2*shd]`` and writes zeros
 for query rows past ``new_len``.
+
+With int8 KV the cache is int8 and ``scale`` holds its bf16 group-scale
+rows ``[L*S, scale_lanes]``; the kernels dequantize each page in f32.
+Decode's ``fresh_k/fresh_v`` stay unquantized (q's dtype); prefill's
+``fresh_kv`` is int8 too, with its scale rows ``fresh_scale
+[Bp, Qp, scale_lanes]``.
 """
 
 from __future__ import annotations
@@ -22,10 +28,12 @@ import ctypes
 import torch
 
 from .. import attention as attn_ops
+from .. import kv_cache as kv_ops
 from ..kv_cache import CacheSpec
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KV_GROUP = 8                # kKvGroup in the .cu: int8 KV scale group
 _DEC_MAX_OUT = 8 * 256       # kDecMaxOut * kThreads in the .cu
 _PREFILL_HD = (16, 32, 64, 128)
 _PREFILL_ROWS = 64           # kRows in the .cu
@@ -41,12 +49,12 @@ def _lib():
     lib = _build.load("paged_attention")
     if not getattr(lib, "_ppl_typed", False):
         lib.ppl_paged_decode_attention.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-            _LL, _I, _LL, _I, _F, _P]
+            _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            _I, _I, _LL, _I, _LL, _I, _F, _P]
         lib.ppl_paged_decode_attention.restype = _I
         lib.ppl_paged_prefill_attention.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-            _LL, _I, _LL, _F, _P]
+            _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+            _I, _I, _I, _I, _LL, _I, _LL, _F, _P]
         lib.ppl_paged_prefill_attention.restype = _I
         lib._ppl_typed = True
     return lib
@@ -65,31 +73,49 @@ def _check_cuda(name: str, device, vector_loaded, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
+def _check_scale_rows(name: str, key: str, scale, shape) -> None:
+    if scale is None or scale.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: int8 KV needs bf16 {key} rows")
+    if tuple(scale.shape) != tuple(shape):
+        raise ValueError(f"{name}: {key} shape {tuple(scale.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
 def _check_common(name: str, q: torch.Tensor, cache: torch.Tensor,
-                  spec: CacheSpec, page_table: torch.Tensor) -> None:
+                  scale, spec: CacheSpec, page_table: torch.Tensor) -> None:
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} not supported")
-    if cache.dtype != q.dtype:
-        raise TypeError(f"{name}: cache dtype {cache.dtype} != q dtype "
-                        f"{q.dtype}")
+    want = torch.int8 if spec.quantized else q.dtype
+    if cache.dtype != want:
+        raise TypeError(f"{name}: cache dtype {cache.dtype}, expected "
+                        f"{want}")
     if page_table.dtype != torch.int32:
         raise TypeError(f"{name}: page_table must be int32")
-    if spec.quantized:
-        raise ValueError(f"{name}: int8 KV is not yet ported")
     kvh, ls_rows, lanes = cache.shape
     if (kvh != spec.num_kv_heads or lanes != spec.row_lanes
             or ls_rows != spec.num_layers * spec.num_slots):
         raise ValueError(f"{name}: cache shape {tuple(cache.shape)} does "
                          "not match its CacheSpec")
-    es = q.element_size()
+    es = cache.element_size()
     if (spec.head_dim * es) % 16 or (spec.shd * es) % 16:
         raise ValueError(f"{name}: head_dim {spec.head_dim} is not a "
                          "whole number of 16-byte vectors")
+    if spec.quantized:
+        if spec.quant_group != _KV_GROUP:
+            raise ValueError(f"{name}: int8 KV group {spec.quant_group} "
+                             f"not supported (only {_KV_GROUP})")
+        _check_scale_rows(name, "scale", scale,
+                          (ls_rows, spec.scale_lanes))
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def paged_decode_attention(
     q: torch.Tensor,             # [B, Hq, hd]
-    cache: torch.Tensor,         # [KVH, L*S, 2*shd]
+    cache: torch.Tensor,         # [KVH, L*S, 2*shd] (int8 when quantized)
+    scale,                       # bf16 [L*S, scale_lanes] or None
     page_table: torch.Tensor,    # i32[B, P]
     context_len: torch.Tensor,   # i32[B] kv length incl. current token
     spec: CacheSpec,
@@ -103,7 +129,7 @@ def paged_decode_attention(
     self-term."""
     if q.device.type == "cpu":
         out = attn_ops.decode_attention_ref(
-            q, cache, page_table, context_len, spec, layer=layer,
+            q, cache, scale, page_table, context_len, spec, layer=layer,
             fresh_k=fresh_k, fresh_v=fresh_v)
         return torch.where((context_len > 0)[:, None, None], out,
                            torch.zeros((), dtype=out.dtype))
@@ -111,7 +137,8 @@ def paged_decode_attention(
         raise ValueError(f"paged_decode_attention: device {q.device}")
     b, hq, hd = q.shape
     kvh = spec.num_kv_heads
-    _check_common("paged_decode_attention", q, cache, spec, page_table)
+    _check_common("paged_decode_attention", q, cache, scale, spec,
+                  page_table)
     if context_len.dtype != torch.int32:
         raise TypeError("paged_decode_attention: context_len must be int32")
     if (hq % kvh or hd != spec.head_dim or tuple(fresh_k.shape) != (b, kvh, hd)
@@ -123,14 +150,16 @@ def paged_decode_attention(
                         "q's")
     if (hq // kvh) * hd > _DEC_MAX_OUT:
         raise ValueError("paged_decode_attention: G*head_dim too large")
-    _check_cuda("paged_decode_attention", q.device, ("cache",), q=q,
+    extra = {"scale": scale} if spec.quantized else {}
+    _check_cuda("paged_decode_attention", q.device, ("cache", "scale"), q=q,
                 cache=cache, page_table=page_table, context_len=context_len,
-                fresh_k=fresh_k, fresh_v=fresh_v)
+                fresh_k=fresh_k, fresh_v=fresh_v, **extra)
     out = torch.empty_like(q)
     if b == 0:
         return out
     err = _lib().ppl_paged_decode_attention(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), cache.data_ptr(),
+        _DTYPE_CODE[q.dtype], int(spec.quantized), q.data_ptr(),
+        cache.data_ptr(), _ptr(extra.get("scale")), spec.scale_lanes,
         page_table.data_ptr(), context_len.data_ptr(), fresh_k.data_ptr(),
         fresh_v.data_ptr(), out.data_ptr(), b, hq, kvh, hd, spec.shd,
         page_table.shape[1], spec.page_size, cache.shape[1], layer,
@@ -148,7 +177,8 @@ paged_decode_attention.launches = 0
 
 def paged_prefill_attention(
     q: torch.Tensor,             # [Bp, Qp, Hq, hd]
-    cache: torch.Tensor,         # [KVH, L*S, 2*shd]
+    cache: torch.Tensor,         # [KVH, L*S, 2*shd] (int8 when quantized)
+    scale,                       # bf16 [L*S, scale_lanes] or None
     page_table: torch.Tensor,    # i32[Bp, P]
     start: torch.Tensor,         # i32[Bp]
     new_len: torch.Tensor,       # i32[Bp]
@@ -156,6 +186,7 @@ def paged_prefill_attention(
     *,
     layer: int,
     fresh_kv: torch.Tensor,      # [Bp, KVH, Qp, 2*shd] packed rows
+    fresh_scale=None,            # bf16 [Bp, Qp, scale_lanes] if int8
 ) -> torch.Tensor:               # [Bp, Qp, Hq, hd]
     """K2: chunked-causal prefill attention over the paged cache with
     ``start > 0`` support; positions ``>= start`` read ``fresh_kv``."""
@@ -163,14 +194,23 @@ def paged_prefill_attention(
     if q.device.type == "cpu":
         fk = fresh_kv[..., :hd].permute(0, 2, 1, 3)
         fv = fresh_kv[..., spec.shd:spec.shd + hd].permute(0, 2, 1, 3)
+        if spec.quantized:
+            bp, qp = fk.shape[:2]
+            s = fresh_scale[..., :spec.num_kv_heads * spec.scale_lane_stride]
+            s = s.reshape(bp, qp, spec.num_kv_heads, 2, spec.scale_groups)
+            fk = kv_ops.dequantize_kv(fk, s[..., 0, :], spec.quant_group,
+                                      q.dtype)
+            fv = kv_ops.dequantize_kv(fv, s[..., 1, :], spec.quant_group,
+                                      q.dtype)
         return attn_ops.prefill_attention_ref(
-            q, cache, page_table, start, new_len, spec, layer=layer,
+            q, cache, scale, page_table, start, new_len, spec, layer=layer,
             fresh_k=fk, fresh_v=fv)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: device {q.device}")
     bp, qp, hq, qhd = q.shape
     kvh = spec.num_kv_heads
-    _check_common("paged_prefill_attention", q, cache, spec, page_table)
+    _check_common("paged_prefill_attention", q, cache, scale, spec,
+                  page_table)
     if start.dtype != torch.int32 or new_len.dtype != torch.int32:
         raise TypeError("paged_prefill_attention: start/new_len must be "
                         "int32")
@@ -184,17 +224,24 @@ def paged_prefill_attention(
     if hd not in _PREFILL_HD or hq // kvh > _PREFILL_ROWS:
         raise ValueError(f"paged_prefill_attention: head_dim {hd} / group "
                          f"{hq // kvh} not supported")
+    extra = {}
+    if spec.quantized:
+        _check_scale_rows("paged_prefill_attention", "fresh_scale",
+                          fresh_scale, (bp, qp, spec.scale_lanes))
+        extra = {"scale": scale, "fresh_scale": fresh_scale}
     _check_cuda("paged_prefill_attention", q.device,
-                ("cache", "fresh_kv"), q=q, cache=cache,
-                page_table=page_table, start=start, new_len=new_len,
-                fresh_kv=fresh_kv)
+                ("cache", "fresh_kv", "scale", "fresh_scale"), q=q,
+                cache=cache, page_table=page_table, start=start,
+                new_len=new_len, fresh_kv=fresh_kv, **extra)
     out = torch.empty_like(q)
     if bp == 0 or qp == 0:
         return out
     err = _lib().ppl_paged_prefill_attention(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), cache.data_ptr(),
+        _DTYPE_CODE[q.dtype], int(spec.quantized), q.data_ptr(),
+        cache.data_ptr(), _ptr(extra.get("scale")), spec.scale_lanes,
         page_table.data_ptr(), start.data_ptr(), new_len.data_ptr(),
-        fresh_kv.data_ptr(), out.data_ptr(), bp, qp, hq, kvh, hd, spec.shd,
+        fresh_kv.data_ptr(), _ptr(extra.get("fresh_scale")), out.data_ptr(),
+        bp, qp, hq, kvh, hd, spec.shd,
         page_table.shape[1], spec.page_size, cache.shape[1], layer,
         spec.num_slots, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -1,14 +1,16 @@
-"""Fused dynamic-quant i8i8 matmul (K3): wrapper of the CUDA kernels in
-``csrc/quant_matmul.cu``.
+"""Fused dynamic-quant i8i8 (K3) and w4a8 (K4) matmuls: wrappers of the
+CUDA kernels in ``csrc/quant_matmul.cu``.
 
-On the CPU the wrapper runs the plain version
-(:func:`..quant.i8i8_matmul`); on a CUDA tensor it launches the kernel
-(a per-token quantize pass, then the int8 GEMM with the scale epilogue)
-or raises, never falling back. ``i8i8_matmul.launches`` counts launches.
+On the CPU each wrapper runs its plain version (:func:`..quant.i8i8_matmul`,
+:func:`..quant.w4a8_matmul`); on a CUDA tensor it launches the kernels (a
+per-token quantize pass, then the int8 x int8 or int8 x int4 GEMM with
+the scale epilogue) or raises, never falling back.
+``i8i8_matmul.launches`` and ``w4a8_matmul.launches`` count launches.
 
-Same two weight contracts as the JAX package's ``i8i8_matmul_pallas``:
-plain x [T, D] x w [D, ...out] -> [T, ...out]; fused w [C, D, N],
-scale [C, N] -> [C, T, N]. ``out_dtype`` is written by the epilogue.
+Same two weight contracts as the JAX package's Pallas kernels: plain
+x [T, D] x w [D, ...out] -> [T, ...out] (w4a8: packed [D/2, ...out],
+scales [G, ...out]); fused w [C, D, N] (w4a8: [C, D/2, N], scales
+[C, G, N]) -> [C, T, N]. ``out_dtype`` is written by the epilogue.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from .. import quant as quant_ops
 from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_W4_GROUPS = (16, 32, 64, 128)   # the GROUP instantiations in the .cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -33,21 +36,52 @@ def _lib():
         lib.ppl_i8i8_gemm.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _P]
         lib.ppl_i8i8_gemm.restype = _I
+        lib.ppl_w4a8_gemm.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _P]
+        lib.ppl_w4a8_gemm.restype = _I
         lib._ppl_typed = True
     return lib
+
+
+def _check_x(name: str, x: torch.Tensor, out_dtype: torch.dtype) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: device {x.device}")
+    if x.ndim != 2 or x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: x must be 2-D float32/bfloat16, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: out_dtype {out_dtype} not supported")
+
+
+def _check_operands(name: str, x: torch.Tensor, **tensors) -> None:
+    """Every operand contiguous, on x's device and 16-byte aligned."""
+    for key, ten in (("x", x),) + tuple(tensors.items()):
+        if ten.device != x.device or not ten.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous "
+                             f"tensor on {x.device}")
+        if ten.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
+def _quantize_rows(name: str, lib, x: torch.Tensor, stream):
+    """The per-token int8 pass: x [T, D] -> (int8 [T, D], f32 [T])."""
+    t, d = x.shape
+    xq = torch.empty((t, d), dtype=torch.int8, device=x.device)
+    xs = torch.empty((t,), dtype=torch.float32, device=x.device)
+    err = lib.ppl_i8i8_quantize_rows(_DTYPE_CODE[x.dtype], x.data_ptr(),
+                                     xq.data_ptr(), xs.data_ptr(), t, d,
+                                     stream)
+    if err:
+        raise RuntimeError(f"{name}: quantize launch failed (cudaError "
+                           f"{err})")
+    return xq, xs
 
 
 def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if x.device.type == "cpu":
         return quant_ops.i8i8_matmul(x, w_q, w_scale).to(out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"i8i8_matmul: device {x.device}")
-    if x.ndim != 2 or x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"i8i8_matmul: x must be 2-D float32/bfloat16, got "
-                        f"{tuple(x.shape)} {x.dtype}")
-    if out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"i8i8_matmul: out_dtype {out_dtype} not supported")
+    _check_x("i8i8_matmul", x, out_dtype)
     if w_q.dtype != torch.int8 or w_scale.dtype != torch.float32:
         raise TypeError("i8i8_matmul: w_q must be int8 and w_scale float32")
     t, d = x.shape
@@ -64,26 +98,16 @@ def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                          f"{tuple(w_q.shape)} scale {tuple(w_scale.shape)}")
     if d % 4 or n % 4:
         raise ValueError("i8i8_matmul: D and N must be multiples of 4")
-    for key, ten in (("x", x), ("w_q", w_q), ("w_scale", w_scale)):
-        if ten.device != x.device or not ten.is_contiguous():
-            raise ValueError(f"i8i8_matmul: {key} must be a contiguous "
-                             f"tensor on {x.device}")
-        if ten.data_ptr() % 16:
-            raise ValueError(f"i8i8_matmul: {key} must be 16-byte aligned")
+    _check_operands("i8i8_matmul", x, w_q=w_q, w_scale=w_scale)
     out = torch.empty((c, t, n), dtype=out_dtype, device=x.device)
     if t:
         lib = _lib()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        xq = torch.empty((t, d), dtype=torch.int8, device=x.device)
-        xs = torch.empty((t,), dtype=torch.float32, device=x.device)
-        err = lib.ppl_i8i8_quantize_rows(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                                         xq.data_ptr(), xs.data_ptr(), t, d,
-                                         stream)
-        if not err:
-            err = lib.ppl_i8i8_gemm(_DTYPE_CODE[out_dtype], xq.data_ptr(),
-                                    xs.data_ptr(), w_q.data_ptr(),
-                                    w_scale.data_ptr(), out.data_ptr(), t, d,
-                                    n, c, stream)
+        xq, xs = _quantize_rows("i8i8_matmul", lib, x, stream)
+        err = lib.ppl_i8i8_gemm(_DTYPE_CODE[out_dtype], xq.data_ptr(),
+                                xs.data_ptr(), w_q.data_ptr(),
+                                w_scale.data_ptr(), out.data_ptr(), t, d, n,
+                                c, stream)
         if err:
             raise RuntimeError(f"i8i8_matmul: launch failed (cudaError "
                                f"{err})")
@@ -94,3 +118,57 @@ def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 
 i8i8_matmul.launches = 0
+
+
+def w4a8_matmul(x: torch.Tensor, w_p: torch.Tensor, w_scale: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K4: per-token int8 activations x group-int4 weights (nibble pairs
+    i, i + D/2), f32 accumulation, ``out_dtype`` out."""
+    if x.device.type == "cpu":
+        return quant_ops.w4a8_matmul(x, w_p, w_scale).to(out_dtype)
+    _check_x("w4a8_matmul", x, out_dtype)
+    if w_p.dtype != torch.int8 or w_scale.dtype != torch.float32:
+        raise TypeError("w4a8_matmul: w_p must be int8 (packed int4) and "
+                        "w_scale float32")
+    t, d = x.shape
+    fused = w_p.ndim == 3
+    if fused:
+        c, d2, n = w_p.shape
+        g = w_scale.shape[1] if w_scale.ndim == 3 else -1
+        out_shape = None
+    else:
+        c, d2 = 1, w_p.shape[0]
+        g = w_scale.shape[0]
+        out_shape = tuple(w_p.shape[1:])
+        n = w_p[0].numel()
+    if (2 * d2 != d or g <= 0 or d % g
+            or w_scale.numel() != c * g * n):
+        raise ValueError(f"w4a8_matmul: x {tuple(x.shape)} w_p "
+                         f"{tuple(w_p.shape)} w_scale "
+                         f"{tuple(w_scale.shape)}")
+    group = d // g
+    if group not in _W4_GROUPS or d2 % group:
+        raise ValueError(f"w4a8_matmul: group {group} not supported "
+                         f"(one of {_W4_GROUPS}, dividing D/2)")
+    if n % 4:
+        raise ValueError("w4a8_matmul: N must be a multiple of 4")
+    _check_operands("w4a8_matmul", x, w_p=w_p, w_scale=w_scale)
+    out = torch.empty((c, t, n), dtype=out_dtype, device=x.device)
+    if t:
+        lib = _lib()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        xq, xs = _quantize_rows("w4a8_matmul", lib, x, stream)
+        err = lib.ppl_w4a8_gemm(_DTYPE_CODE[out_dtype], xq.data_ptr(),
+                                xs.data_ptr(), w_p.data_ptr(),
+                                w_scale.data_ptr(), out.data_ptr(), t, d, n,
+                                c, group, stream)
+        if err:
+            raise RuntimeError(f"w4a8_matmul: launch failed (cudaError "
+                               f"{err})")
+        w4a8_matmul.launches += 1
+    if fused:
+        return out
+    return out[0].reshape((t,) + out_shape)
+
+
+w4a8_matmul.launches = 0

@@ -37,7 +37,7 @@ def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
     params = loader.load_params(model_cfg, resource_cfg.model_format,
                                 resource_cfg.model_dir, seed=rng_seed,
                                 device=device)
-    if resource_cfg.quant_method == "online_i8i8":
+    if resource_cfg.quant_method != "none":
         params = llama.quantize_model_params(
             params, resource_cfg.quant_method, resource_cfg.quantize_lm_head)
 

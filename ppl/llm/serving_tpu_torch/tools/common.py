@@ -36,9 +36,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--quant-method", default="none",
-                   choices=["none", "online_i8i8"],
+                   choices=["none", "online_i8i8", "online_w4a8"],
                    help="online_i8i8: int8 weights and per-token int8 "
-                        "activations")
+                        "activations; online_w4a8: group-64 int4 weights "
+                        "and per-token int8 activations")
     p.add_argument("--quantize-lm-head", action="store_true",
                    help="also quantize the lm_head matmul")
     p.add_argument("--page-size", type=int, default=128)

@@ -1,6 +1,7 @@
 """Port generator end to end vs the JAX generator (after
 tests/test_generator_e2e.py): the same weights, the same requests, the
-per-step loop (multi_step=1) on both; greedy tokens must be identical.
+per-step loop (multi_step=1) on both; greedy tokens must be identical,
+with float, i8i8, and w4a8 weights over an int8 KV cache.
 """
 
 import jax
@@ -60,10 +61,15 @@ def serve(gen, conn, req_cls, gen_len):
     return {i: list(conn.tokens[i]) for i in range(len(reqs))}
 
 
-@pytest.mark.parametrize("quant_method", ["none", "online_i8i8"])
-def test_greedy_tokens_match_jax_generator(quant_method):
+@pytest.mark.parametrize("quant_method,kv8", [
+    pytest.param("none", False, id="none"),
+    pytest.param("online_i8i8", False, id="online_i8i8"),
+    pytest.param("online_w4a8", True, id="online_w4a8-int8_kv"),
+])
+def test_greedy_tokens_match_jax_generator(quant_method, kv8):
     gen_len = 10
-    jcfg = JModelConfig(**MODEL)
+    kv = dict(cache_quant_bit=8, cache_quant_group=8) if kv8 else {}
+    jcfg = JModelConfig(**MODEL, **kv)
     jgen_cfg = JGeneratorConfig(**GEN)
     jengine, kv_max = j_create_engine(
         jcfg, JResourceConfig(quant_method=quant_method, **RESOURCE),
@@ -76,7 +82,7 @@ def test_greedy_tokens_match_jax_generator(quant_method):
     finally:
         jgen.shutdown()
 
-    cfg = ModelConfig(**MODEL)
+    cfg = ModelConfig(**MODEL, **kv)
     gen_cfg = GeneratorConfig(**GEN)
     rcfg = ResourceConfig(device="cpu", quant_method=quant_method,
                           **RESOURCE)
@@ -85,7 +91,8 @@ def test_greedy_tokens_match_jax_generator(quant_method):
     spec = CacheSpec(num_layers=cfg.num_layers,
                      num_pages=kv_max // cfg.page_size,
                      page_size=cfg.page_size, num_kv_heads=cfg.num_kv_heads,
-                     head_dim=cfg.head_dim, dtype=torch.float32)
+                     head_dim=cfg.head_dim, quant_bit=cfg.cache_quant_bit,
+                     quant_group=cfg.cache_quant_group, dtype=torch.float32)
     engine = LLMEngine(cfg, rcfg, params, spec, device="cpu")
     conn = LocalConnection()
     gen = LLMGenerator(cfg, gen_cfg, engine, ByteTokenizer(), conn, kv_max)

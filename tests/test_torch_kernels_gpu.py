@@ -6,9 +6,12 @@ no CUDA device, and runs on the GPU machine with
 
 Tolerances: f32 atol/rtol 2e-5 for attention (only the order of the
 softmax sums differs), bf16 2e-2 (bf16 inputs, f32 accumulation on both
-sides, bf16 output rounding); i8i8 exact in f32 (same quantized operands,
-exact int32 sums, same epilogue order) and within one bf16 rounding in
-bf16.
+sides, bf16 output rounding); with int8 KV the same (the kernels
+dequantize in f32, exactly as the plain version does before its bf16
+rounding); i8i8 exact in f32 (same quantized operands, exact int32 sums,
+same epilogue order) and within one bf16 rounding in bf16; w4a8 within
+1e-5 of max|ref| in f32 (the groups' f32 partials are added in another
+order) and, in bf16, within 2^-8 |ref| + 1e-5 max|ref| per element.
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from ppl.llm.serving_tpu_torch.ops import attention as attn_ops
+from ppl.llm.serving_tpu_torch.ops import kv_cache as kv_ops
 from ppl.llm.serving_tpu_torch.ops import quant as quant_ops
 from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention as pk
 from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul as qk
@@ -59,11 +63,11 @@ def test_decode_kernel_matches_plain(cuda, dtype, hq, kvh, hd):
     q = torch.randn((b, hq, hd), generator=g, device=cuda).to(dtype)
     fk = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
     fv = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
-    out = pk.paged_decode_attention(q, cache, pt, ctx, spec, layer=1,
+    out = pk.paged_decode_attention(q, cache, None, pt, ctx, spec, layer=1,
                                     fresh_k=fk, fresh_v=fv)
     torch.cuda.synchronize()
-    ref = attn_ops.decode_attention_ref(q, cache, pt, ctx, spec, layer=1,
-                                        fresh_k=fk, fresh_v=fv)
+    ref = attn_ops.decode_attention_ref(q, cache, None, pt, ctx, spec,
+                                        layer=1, fresh_k=fk, fresh_v=fv)
     ref = torch.where((ctx > 0)[:, None, None], ref, torch.zeros(
         (), dtype=ref.dtype, device=cuda))
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
@@ -86,13 +90,14 @@ def test_prefill_kernel_matches_plain(cuda, dtype, hq, kvh, hd):
     q = torch.randn((bp, qp, hq, hd), generator=g, device=cuda).to(dtype)
     fresh = torch.randn((bp, kvh, qp, 2 * hd), generator=g,
                         device=cuda).to(dtype)
-    out = pk.paged_prefill_attention(q, cache, pt, start, new_len, spec,
-                                     layer=1, fresh_kv=fresh)
+    out = pk.paged_prefill_attention(q, cache, None, pt, start, new_len,
+                                     spec, layer=1, fresh_kv=fresh)
     torch.cuda.synchronize()
     fk = fresh[..., :hd].permute(0, 2, 1, 3)
     fv = fresh[..., hd:].permute(0, 2, 1, 3)
-    ref = attn_ops.prefill_attention_ref(q, cache, pt, start, new_len, spec,
-                                         layer=1, fresh_k=fk, fresh_v=fv)
+    ref = attn_ops.prefill_attention_ref(q, cache, None, pt, start, new_len,
+                                         spec, layer=1, fresh_k=fk,
+                                         fresh_v=fv)
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
 
 
@@ -119,3 +124,106 @@ def test_i8i8_kernel_matches_plain(cuda, t, fused):
     ref_bf = quant_ops.i8i8_matmul(x.to(torch.bfloat16), wq, ws)
     torch.testing.assert_close(out_bf.float(), ref_bf.to(torch.bfloat16)
                                .float(), atol=0, rtol=0)
+
+
+def make_int8_cache(spec, dev, seed):
+    """Random K/V quantized into a whole int8 cache and its scale rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = spec.num_layers * spec.num_slots
+    k = torch.randn((n, spec.num_kv_heads, spec.head_dim), generator=g,
+                    device=dev)
+    v = torch.randn((n, spec.num_kv_heads, spec.head_dim), generator=g,
+                    device=dev)
+    qk, sk = kv_ops.quantize_kv(k, 8)
+    qv, sv = kv_ops.quantize_kv(v, 8)
+    cache = kv_ops.pack_kv_rows(qk, qv, spec).permute(1, 0, 2).contiguous()
+    return cache, kv_ops.pack_scale_rows(sk, sv, spec).contiguous()
+
+
+INT8_GEOMS = [(32, 32, 128), (32, 4, 64)]   # LLaMA-2-7B (G=1), TinyLlama
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kvh,hd", INT8_GEOMS)
+def test_int8_decode_kernel_matches_plain(cuda, dtype, hq, kvh, hd):
+    spec = CacheSpec(num_layers=2, num_pages=40, page_size=16,
+                     num_kv_heads=kvh, head_dim=hd, quant_bit=8,
+                     quant_group=8, dtype=dtype)
+    cache, scale = make_int8_cache(spec, cuda, 5)
+    ctx = torch.tensor([0, 1, 17, 160, 300, 33], dtype=torch.int32,
+                       device=cuda)
+    b = ctx.numel()
+    rng = np.random.default_rng(5)
+    pt = torch.from_numpy(rng.integers(0, 40, (b, 20)).astype(
+        np.int32)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, hq, hd), generator=g, device=cuda).to(dtype)
+    fk = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
+    fv = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
+    out = pk.paged_decode_attention(q, cache, scale, pt, ctx, spec, layer=1,
+                                    fresh_k=fk, fresh_v=fv)
+    torch.cuda.synchronize()
+    ref = attn_ops.decode_attention_ref(q, cache, scale, pt, ctx, spec,
+                                        layer=1, fresh_k=fk, fresh_v=fv)
+    ref = torch.where((ctx > 0)[:, None, None], ref, torch.zeros(
+        (), dtype=ref.dtype, device=cuda))
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kvh,hd", INT8_GEOMS)
+def test_int8_prefill_kernel_matches_plain(cuda, dtype, hq, kvh, hd):
+    ps, qp = 16, 64
+    spec = CacheSpec(num_layers=2, num_pages=40, page_size=ps,
+                     num_kv_heads=kvh, head_dim=hd, quant_bit=8,
+                     quant_group=8, dtype=dtype)
+    cache, scale = make_int8_cache(spec, cuda, 7)
+    start = torch.tensor([0, 2 * ps, 2 * ps - 1, 0], dtype=torch.int32,
+                         device=cuda)
+    new_len = torch.tensor([50, 64, 1, 0], dtype=torch.int32, device=cuda)
+    bp = start.numel()
+    pt = (torch.arange(bp * 8, dtype=torch.int32, device=cuda)
+          .reshape(bp, 8) % 40)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((bp, qp, hq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((bp, qp, kvh, hd), generator=g, device=cuda)
+    v = torch.randn((bp, qp, kvh, hd), generator=g, device=cuda)
+    qk, sk = kv_ops.quantize_kv(k, 8)
+    qv, sv = kv_ops.quantize_kv(v, 8)
+    fresh = kv_ops.pack_kv_rows(qk, qv, spec).permute(0, 2, 1, 3).contiguous()
+    fscale = kv_ops.pack_scale_rows(sk, sv, spec).contiguous()
+    out = pk.paged_prefill_attention(q, cache, scale, pt, start, new_len,
+                                     spec, layer=1, fresh_kv=fresh,
+                                     fresh_scale=fscale)
+    torch.cuda.synchronize()
+    ref = attn_ops.prefill_attention_ref(
+        q, cache, scale, pt, start, new_len, spec, layer=1,
+        fresh_k=kv_ops.dequantize_kv(qk, sk, 8, dtype),
+        fresh_v=kv_ops.dequantize_kv(qv, sv, 8, dtype))
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("group", [32, 64])
+@pytest.mark.parametrize("t", [1, 8, 100])
+@pytest.mark.parametrize("fused", [False, True])
+def test_w4a8_kernel_matches_plain(cuda, group, t, fused):
+    d, n = 512, 192
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = torch.randn(((d, 2, n) if fused else (d, n)), generator=g,
+                    device=cuda) * 0.05
+    wp, ws = quant_ops.quantize_weight_int4(w, group=group)
+    assert ws.shape[0] == d // group
+    if fused:
+        wp = wp.permute(1, 0, 2).contiguous()
+        ws = ws.permute(1, 0, 2).contiguous()
+    x = torch.randn((t, d), generator=g, device=cuda)
+    out = qk.w4a8_matmul(x, wp, ws)
+    torch.cuda.synchronize()
+    ref = quant_ops.w4a8_matmul(x, wp, ws)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= 1e-5 * scale
+    xb = x.to(torch.bfloat16)
+    out_bf = qk.w4a8_matmul(xb, wp, ws, out_dtype=torch.bfloat16)
+    ref_bf = quant_ops.w4a8_matmul(xb, wp, ws)
+    lim = 2.0 ** -8 * ref_bf.abs() + 1e-5 * float(ref_bf.abs().max())
+    assert bool(((out_bf.float() - ref_bf).abs() <= lim).all())

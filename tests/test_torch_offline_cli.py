@@ -16,13 +16,19 @@ from ppl.llm.serving_tpu_torch.tokenizer import create_tokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "tests", "data", "params_tiny.json")
+# the same widths with an int8 group-8 KV cache
+TINY_INT8KV = os.path.join(REPO, "tests", "data", "params_tiny_int8kv.json")
 
 
-@pytest.mark.parametrize("quant", ["none", "online_i8i8"])
-def test_offline_cli_on_cpu(quant):
+@pytest.mark.parametrize("quant,params", [
+    pytest.param("none", TINY, id="none"),
+    pytest.param("online_i8i8", TINY, id="online_i8i8"),
+    pytest.param("online_w4a8", TINY_INT8KV, id="online_w4a8-int8_kv"),
+])
+def test_offline_cli_on_cpu(quant, params):
     cmd = [sys.executable, "-m",
            "ppl.llm.serving_tpu_torch.tools.offline_inference",
-           "--device", "cpu", "--model-param-path", TINY,
+           "--device", "cpu", "--model-param-path", params,
            "--tokenizer-type", "dummy", "--dtype", "float32",
            "--kv-cache-max-tokens", "2048", "--generation-len", "6",
            "--max-total-tokens-per-request", "256",
@@ -56,11 +62,50 @@ def test_cpu_engine_builds():
     engine, kv_max = create_engine(mc, rc, gc)
     assert kv_max == 1024
     assert engine.kv_cache.device.type == "cpu"
+    assert engine.kv_scale is None
+
+
+def test_cpu_engine_builds_w4a8_int8_kv():
+    mc = ModelConfig.from_params_json(TINY_INT8KV)
+    rc = ResourceConfig(device="cpu", kv_cache_max_tokens=1024,
+                        quant_method="online_w4a8", quantize_lm_head=True)
+    engine, _ = create_engine(mc, rc, GeneratorConfig(max_running_batch=4))
+    assert engine.kv_cache.dtype == torch.int8
+    assert engine.kv_scale.dtype == torch.bfloat16
+    assert engine.kv_scale.shape[0] == engine.kv_cache.shape[1]
+    layer = engine._params["layers"][0]
+    d, inter = mc.hidden_dim, mc.intermediate_dim
+    assert tuple(layer["w_gate_up_q"].shape) == (2, d // 2, inter)
+    assert tuple(layer["w_gate_up_s"].shape) == (2, d // 32, inter)
+    assert engine._params["lm_head_q"].dtype == torch.int8
+
+
+@pytest.mark.parametrize("dtype,kv8", [("bfloat16", False),
+                                       ("bfloat16", True)])
+def test_kv_pool_sizing_matches_jax(dtype, kv8):
+    """compute_kv_cache_max_tokens counts 2-byte (bf16) elements, or
+    1-byte int8 elements plus one bf16 scale per group of 8, as the JAX
+    package's does."""
+    from ppl.llm.serving_tpu.config import ModelConfig as JModelConfig
+    from ppl.llm.serving_tpu.config import ResourceConfig as JResourceConfig
+    from ppl.llm.serving_tpu.engine import (
+        compute_kv_cache_max_tokens as j_compute)
+    from ppl.llm.serving_tpu_torch.engine import compute_kv_cache_max_tokens
+    # LLaMA-2-7B widths (bench.py's 7B configuration)
+    widths = dict(hidden_dim=4096, intermediate_dim=11008, num_layers=32,
+                  num_heads=32, num_kv_heads=32, vocab_size=32000,
+                  dtype=dtype)
+    if kv8:
+        widths.update(cache_quant_bit=8, cache_quant_group=8)
+    for free in (0, 40 << 30, 70_000_000_123):
+        want = j_compute(JModelConfig(**widths), JResourceConfig(), free)
+        got = compute_kv_cache_max_tokens(ModelConfig(**widths),
+                                          ResourceConfig(), free)
+        assert got == want
 
 
 @pytest.mark.parametrize("field,value,what", [
     ("multi_step", 8, "multi-step"),
-    ("quant_method", "online_w4a8", "online_w4a8"),
     ("tensor_parallel_size", 2, "tensor parallelism"),
     ("block_tail", "on", "block_tail"),
     ("model_format", "hf", "model_format"),
@@ -72,16 +117,23 @@ def test_resource_options_not_ported(field, value, what):
     assert what in str(e.value)
 
 
+def test_w4a8_and_int8_kv_accepted():
+    ResourceConfig(device="cpu", quant_method="online_w4a8",
+                   quantize_lm_head=True).validate()
+    ModelConfig.from_params_json(TINY_INT8KV).validate()
+    # the JAX package's rule: int4 nibble pairs need the whole contraction
+    with pytest.raises(ConfigError, match="tensor_parallel_size == 1"):
+        ResourceConfig(device="cpu", quant_method="online_w4a8",
+                       tensor_parallel_size=2).validate()
+
+
 @pytest.mark.parametrize("field,value,what", [
-    ("cache_quant_bit", 8, "int8 KV"),
     ("position_encoding", "alibi", "ALiBi"),
     ("attn_bias", True, "attn_bias"),
 ])
 def test_model_options_not_ported(field, value, what):
     mc = ModelConfig.from_params_json(TINY)
     setattr(mc, field, value)
-    if field == "cache_quant_bit":
-        mc.cache_quant_group = 8
     with pytest.raises(ConfigError, match="not yet ported") as e:
         mc.validate()
     assert what in str(e.value)
