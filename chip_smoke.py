@@ -6,10 +6,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It imports nothing of JAX or of the JAX package, and runs in phases;
-any failed phase exits non-zero and prints no result. Two paths are
+any failed phase exits non-zero and prints no result. Four paths are
 driven: TinyLlama-1.1B widths with online_i8i8 weights over a bf16 paged
 KV cache (K1, K2, K3), and LLaMA-2-7B widths with online_w4a8 weights, an
-int4 lm_head and an int8 group-8 KV cache (K1 and K2 on int8 pages, K4).
+int4 lm_head and an int8 group-8 KV cache (K1 and K2 on int8 pages, K4),
+per step (multi_step=1), in multi-step decode blocks of 8 (multi_step=8,
+each block a CUDA graph once its program key recurs), and in blocks with
+block-tail mode (K1's tail phase).
 
 1. the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel);
@@ -18,20 +21,28 @@ int4 lm_head and an int8 group-8 KV cache (K1 and K2 on int8 pages, K4).
    ms, plain ms, the least time the card could take (bound), and one
    PyTorch library call computing the same function as a yardstick
    (never called by the port; none exists for K4, which gets torch._int_mm
-   on the unpacked int8 weight as an orientation figure only);
+   on the unpacked int8 weight as an orientation figure only); K1 also in
+   block-tail mode;
 4. step cross-checks: 2-layer models at full width, same weights on cuda
    (kernels) and cpu (plain versions), one mixed decode+prefill step in
    float32: logits within tolerance, greedy tokens equal, written cache
-   rows within tolerance;
+   rows within tolerance; then a 4-step decode block at 7B width (block
+   tail off and on) on cpu and on cuda, where the cuda block runs once
+   eagerly and once as a captured CUDA graph from the same cache state,
+   which must agree bit for bit;
 5. end to end, once per path: create_engine + LLMGenerator +
    LocalConnection serving 8 greedy requests (100-400 prompt tokens, 32
-   new tokens each) at full depth, with every kernel's launch counter set
-   to 0 just before and read just after; then a torch.profiler pass over
-   the same traffic for the device-time breakdown;
+   new tokens each) at full depth, after warm-up passes of the same shape
+   (every program key eager once, then captured as a CUDA graph), with
+   every kernel's launch counter set to 0 just before and read just after (block paths: also the engine's
+   graph replays and device-fed or continuation dispatches); then a
+   torch.profiler pass over the same traffic for the device-time
+   breakdown;
 6. the ``kernels`` JSON line, then the device JSON line last.
 """
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -293,6 +304,129 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
                           ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
                           library_ms=timer.ms(lib, iters=5),
                           bound_ms=bms, bound_by=by)))
+    return cases
+
+
+def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
+               tail_lens, label):
+    """K1 in block-tail mode: B=8 rows, contexts 0-383, a side buffer of
+    J=8 rows per (layer, row, head), ``tail_len`` of them live."""
+    hq, kvh, hd, L = geometry(widths)
+    b, jt = 8, 8
+    spec = kv_cache.CacheSpec(num_layers=L, num_pages=64, page_size=PS,
+                              num_kv_heads=kvh, head_dim=hd,
+                              quant_bit=8 if quantized else 0,
+                              quant_group=8 if quantized else 1,
+                              dtype=torch.bfloat16)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cache, scale = random_cache(torch, kv_cache, spec, g)
+    # the side buffer: random K/V rows packed (and quantized) as the step
+    # packs them
+    k, v = torch.randn((2, L * b * jt, kvh, hd), generator=g, device=dev)
+    if quantized:
+        qk, sk = kv_cache.quantize_kv(k, spec.quant_group)
+        qv, sv = kv_cache.quantize_kv(v, spec.quant_group)
+        rows = kv_cache.pack_kv_rows(qk, qv, spec)
+        tscale = kv_cache.pack_scale_rows(sk, sv, spec).reshape(
+            L, b, jt, spec.scale_lanes).contiguous()
+    else:
+        rows = kv_cache.pack_kv_rows(k, v, spec).to(torch.bfloat16)
+        tscale = None
+    tkv = rows.reshape(L, b, jt, kvh, spec.row_lanes).permute(
+        0, 1, 3, 2, 4).contiguous()
+    del k, v, rows
+    rng = np.random.default_rng(SEED + 7)
+    layer = L - 1
+    cases = []
+    for tl in tail_lens:
+        ctx = rng.integers(0, 384, b).astype(np.int32)
+        ctx[rng.choice(b, 1)] = 0                     # a padding row
+        n_cached = np.maximum(ctx - 1 - tl, 0)
+        pt = np.full((b, KVP), spec.trash_page, np.int32)
+        for r in range(b):
+            n_pages = -(-int(n_cached[r]) // PS)
+            pt[r, :n_pages] = rng.choice(spec.num_pages, n_pages,
+                                         replace=False)
+        ctx_t = torch.from_numpy(ctx).to(dev)
+        pt_t = torch.from_numpy(pt).to(dev)
+        tlen = torch.full((1,), tl, dtype=torch.int32, device=dev)
+        q = torch.randn((b, hq, hd), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        fk = torch.randn((b, kvh, hd), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        fv = torch.randn((b, kvh, hd), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+
+        def kern(q=q, cache=cache, fk=fk, fv=fv, tkv=tkv, spec=spec):
+            return pk.paged_decode_attention(
+                q, cache, scale, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
+                fresh_v=fv, tail_kv=tkv, tail_scale=tscale, tail_len=tlen)
+
+        def plain(q=q, cache=cache, fk=fk, fv=fv, tkv=tkv, spec=spec):
+            return attn_ops.decode_attention_ref(
+                q, cache, scale, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
+                fresh_v=fv, tail_kv=tkv, tail_scale=tscale, tail_len=tlen)
+
+        out = kern()
+        ref = plain()
+        f32 = dict(q=q.float(), fk=fk.float(), fv=fv.float(),
+                   spec=dataclasses.replace(spec, dtype=torch.float32))
+        if not quantized:
+            f32.update(cache=cache.float(), tkv=tkv.float())
+        out32, ref32 = kern(**f32), plain(**f32)
+        torch.cuda.synchronize()
+        err, err32 = attn_check(f"K1 tail {label} tail_len={tl}", out, ref,
+                                out32, ref32)
+        del f32, out32, ref32
+        # yardstick: SDPA over the cache gathered (and dequantized)
+        # beforehand, the tail rows and the self-term, concatenated
+        lmax = max(int(n_cached.max()), 1)
+        k_c, v_c = kv_cache.gather_pages(cache, scale,
+                                         pt_t[:, :-(-lmax // PS)], spec,
+                                         torch.bfloat16, layer)
+        k_t, v_t = attn_ops._tail_rows(
+            tkv[layer], None if tscale is None else tscale[layer], spec,
+            torch.bfloat16)
+        k_all = torch.cat([k_c[:, :lmax], k_t, fk[:, None]], 1).permute(
+            0, 2, 1, 3).contiguous()
+        v_all = torch.cat([v_c[:, :lmax], v_t, fv[:, None]], 1).permute(
+            0, 2, 1, 3).contiguous()
+        mask = torch.cat([
+            torch.arange(lmax, device=dev)[None, :]
+            < torch.from_numpy(n_cached).to(dev)[:, None],
+            (torch.arange(jt, device=dev) < tl)[None, :].expand(b, jt),
+            torch.ones((b, 1), dtype=torch.bool, device=dev)], 1)
+        mask = mask[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, k_all, v_all,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+
+        live = ctx > 0
+        n_live = int(live.sum())
+        n_c = int(n_cached[live].sum())
+        pages = int(sum(-(-int(n) // PS) for n in n_cached[live]))
+        # q and fresh k/v of the live rows, every output row, the cached
+        # rows walked (and their scales) with their page-table entries,
+        # this layer's live tail rows (and scale rows), context_len and
+        # tail_len
+        bytes_moved = ((n_live + b) * hq * hd * 2
+                       + n_live * kvh * 2 * hd * 2
+                       + (n_c + n_live * min(tl, jt))
+                       * kv_bytes_per_token(spec)
+                       + pages * 4 + b * 4 + 4)
+        ops = 4 * hq * hd * (n_c + n_live * (min(tl, jt) + 1))
+        bms, by = bound(bytes_moved, ops, PEAK_BF16)
+        cases.append(report("paged_decode_attention", dict(
+            case=f"{label} tail B={b} J={jt} tail_len={tl} bf16 ctx "
+            f"{int(ctx.min())}-{int(ctx.max())}", path=label,
+            max_abs_err=err, tol=BF16_TOL, f32_max_abs_err=err32,
+            f32_tol=F32_TOL, ms=timer.ms(kern),
+            plain_ms=timer.ms(plain, iters=5),
+            library_ms=timer.ms(lib, iters=5), bound_ms=bms, bound_by=by)))
     return cases
 
 
@@ -743,20 +877,146 @@ def step_cross_check(torch, port, quant_method, widths):
                 rows=int(live.sum()))
 
 
+def block_cross_check(torch, port, block_tail, step):
+    """A 4-step decode block at LLaMA-2-7B width, 2 layers, f32, w4a8 +
+    int4 lm_head + int8 KV: 8 rows (two padding, one crossing a page
+    mid-block). The block runs on cpu (plain versions) and on cuda through
+    the engine's runner: its first call runs the block eagerly, its second
+    captures it as a CUDA graph and replays it, from the same cache state.
+    Eager and replay must agree bit for bit on the live rows' tokens and
+    logprobs and on every cache and scale byte outside the trash page.
+    The padding rows are out of it: their duplicate writes land on the
+    trash page in any order, and in per-step mode they read it back, so
+    their (discarded) outputs vary from run to run, eager or replayed
+    alike. Against the cpu: greedy tokens equal on the live
+    rows, logprobs within twice the w4a8 step check's logit tolerance and
+    the written cache rows (dequantized) within its cache tolerance."""
+    llama, kv = port["llama"], port["kv"]
+    cfg = port["ModelConfig"](**dict(LLAMA7B, num_layers=2,
+                                     dtype="float32"))
+    npages, n_steps, bd, kvp = 24, 4, 8, 4
+    spec = kv.CacheSpec(num_layers=2, num_pages=npages, page_size=PS,
+                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                        quant_bit=8, quant_group=8, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    p_gpu = llama.quantize_model_params(
+        llama.init_params(cfg, gen, dtype=torch.float32, device="cuda"),
+        "online_w4a8", quantize_lm_head=True)
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items() if k != "layers"}
+    p_cpu["layers"] = [{k: v.cpu() for k, v in lp.items()}
+                       for lp in p_gpu["layers"]]
+    rng = np.random.default_rng(SEED + 6)
+    shape = (spec.num_kv_heads, 2 * spec.num_slots, spec.row_lanes)
+    cache0 = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+    scale0 = torch.from_numpy(rng.uniform(
+        0.005, 0.03, (shape[1], spec.scale_lanes)).astype(
+            np.float32)).to(torch.bfloat16)
+    # contexts incl. the current token; 0 = padding row. Row 5 crosses
+    # from page 0 into page 1 inside the block.
+    ctx = np.array([130, 41, 300, 0, 257, 127, 0, 5], np.int32)
+    pt = np.full((bd, kvp), npages, np.int32)
+    nxt = 0
+    for r, c in enumerate(ctx):
+        if c:
+            n = -(-(int(c) + n_steps - 1) // PS)
+            pt[r, :n] = np.arange(nxt, nxt + n)
+            nxt += n
+    live = ctx > 0
+    f = dict(decode_tokens=rng.integers(3, cfg.vocab_size, bd),
+             decode_pos=np.maximum(ctx - 1, 0),
+             prefill_tokens=np.zeros((0, 1)), prefill_start=np.zeros(0),
+             prefill_len=np.zeros(0), page_table=pt, context_len=ctx,
+             batch_slots=np.zeros(bd))
+
+    def make_input(dev):
+        t = {k: torch.from_numpy(np.asarray(v, np.int32)).to(dev)
+             for k, v in f.items()}
+        ones, zeros = torch.ones(bd, device=dev), torch.zeros(bd, device=dev)
+        sp = port["samp"].SamplingParams(
+            ones, torch.ones(bd, dtype=torch.int32, device=dev), zeros,
+            torch.zeros(bd, dtype=torch.bool, device=dev), ones, zeros, zeros)
+        return llama.StepInput(sampling=sp, **t)
+
+    block = llama.make_multi_step_fn(cfg, spec, n_steps,
+                                     block_tail=block_tail,
+                                     quant_method="online_w4a8",
+                                     greedy_only=True)
+    c_cpu, s_cpu = cache0.clone(), scale0.clone()
+    t_c, l_c = block(p_cpu, c_cpu, s_cpu,
+                     torch.zeros((1, 1), dtype=torch.int32),
+                     make_input("cpu"))
+    c_gpu, s_gpu = cache0.cuda(), scale0.cuda()
+    cm = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    inp = make_input("cuda")
+    runner = port["engine"]._Runner(
+        lambda: block(p_gpu, c_gpu, s_gpu, cm, inp), torch.device("cuda"))
+    snap = (c_gpu.clone(), s_gpu.clone())
+    t_e, l_e = [x.clone() for x in runner()]          # eager
+    eager = (c_gpu.clone(), s_gpu.clone())
+    c_gpu.copy_(snap[0])
+    s_gpu.copy_(snap[1])
+    t_g, l_g = [x.clone() for x in runner()]          # captured, replayed
+    torch.cuda.synchronize()
+    check(runner.graph is not None and runner.replays == 1,
+          f"block {block_tail}: the second visit did not replay a graph")
+    keep = torch.ones(2 * spec.num_slots, dtype=torch.bool, device="cuda")
+    for layer in range(2):
+        lo = layer * spec.num_slots + spec.trash_page * PS
+        keep[lo:lo + PS] = False
+    lv = torch.from_numpy(live).cuda()
+    same = {"tokens": torch.equal(t_e[:, lv], t_g[:, lv]),
+            "logprobs": torch.equal(l_e[:, lv].view(torch.int32),
+                                    l_g[:, lv].view(torch.int32)),
+            "cache": torch.equal(eager[0][:, keep], c_gpu[:, keep]),
+            "scales": torch.equal(eager[1][keep].view(torch.int16),
+                                  s_gpu[keep].view(torch.int16))}
+    check(all(same.values()), f"block {block_tail}: graph replay differs "
+          f"from the eager block: equal {same}")
+    tg, tc = t_g.cpu().numpy(), t_c.numpy()
+    check((tg[:, live] == tc[:, live]).all(),
+          f"block {block_tail}: tokens cuda {tg[:, live].tolist()} cpu "
+          f"{tc[:, live].tolist()}")
+    lp_err = float(np.abs(l_g.cpu().numpy()[:, live]
+                          - l_c.numpy()[:, live]).max())
+    check(lp_err <= 2 * step["tol"], f"block {block_tail}: logprobs "
+          f"max|diff| {lp_err} > {2 * step['tol']}")
+    keep_c = keep.cpu()
+    v_gpu = dequantized(c_gpu.cpu(), s_gpu.cpu(), spec)[:, keep_c]
+    v_cpu = dequantized(c_cpu, s_cpu, spec)[:, keep_c]
+    written = (v_cpu != dequantized(cache0, scale0, spec)[:, keep_c]).any(
+        dim=(0, 2))
+    cache_err = float((v_gpu - v_cpu)[:, written].abs().max())
+    check(cache_err <= step["cache_tol"], f"block {block_tail}: written "
+          f"cache max|diff| {cache_err} > {step['cache_tol']}")
+    return dict(block_tail=block_tail, tokens=tg[:, live].tolist(),
+                logprob_max_abs_err=lp_err, cache_max_abs_err=cache_err,
+                rows_written=int(written.sum()),
+                graph_launches=runner.launches)
+
+
 # --------------------------------------------------------------- end to end
 
-# the two paths phase 5 drives: (label, widths, ResourceConfig fields,
-# kernels that must launch, kernels that must not)
+# the paths phase 5 drives: (label, widths, ResourceConfig fields,
+# kernels that must launch, kernels that must not). The 7B block paths
+# serve the 7B path's workload and weights in decode blocks of 8.
+W4_7B = dict(quant_method="online_w4a8", quantize_lm_head=True,
+             kv_cache_max_tokens=16384)
+W4_LAUNCHED = ("paged_decode_attention", "paged_prefill_attention",
+               "w4a8_matmul")
 PATHS = [
     ("tinyllama i8i8", TINY,
-     dict(quant_method="online_i8i8", kv_cache_max_tokens=32768),
+     dict(quant_method="online_i8i8", kv_cache_max_tokens=32768,
+          multi_step=1),
      ("paged_decode_attention", "paged_prefill_attention", "i8i8_matmul"),
-     ("w4a8_matmul",)),
-    ("llama2-7b w4a8 int8-kv", LLAMA7B,
-     dict(quant_method="online_w4a8", quantize_lm_head=True,
-          kv_cache_max_tokens=16384),
-     ("paged_decode_attention", "paged_prefill_attention", "w4a8_matmul"),
-     ("i8i8_matmul",)),
+     ("w4a8_matmul", "paged_decode_attention_tail")),
+    ("llama2-7b w4a8 int8-kv", LLAMA7B, dict(W4_7B, multi_step=1),
+     W4_LAUNCHED, ("i8i8_matmul", "paged_decode_attention_tail")),
+    ("llama2-7b w4a8 int8-kv blocks", LLAMA7B,
+     dict(W4_7B, multi_step=8, block_tail="auto"), W4_LAUNCHED,
+     ("i8i8_matmul", "paged_decode_attention_tail")),
+    ("llama2-7b w4a8 int8-kv block-tail", LLAMA7B,
+     dict(W4_7B, multi_step=8, block_tail="on"),
+     W4_LAUNCHED + ("paged_decode_attention_tail",), ("i8i8_matmul",)),
 ]
 
 
@@ -773,6 +1033,8 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         max_output_tokens_per_request=256,
         max_total_tokens_per_request=8192)
     rcfg = cfgs.ResourceConfig(**resource)
+    gc.collect()                 # the previous path's engine and graphs
+    torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -794,6 +1056,8 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         f"the auto-sized pool would be {auto} tokens (free {free >> 20} MiB "
         f"of {total >> 20} MiB before weights; peak "
         f"{torch.cuda.max_memory_allocated() >> 20} MiB while building)")
+    # from here: the serving peak (warm-up, graph captures, the runs)
+    torch.cuda.reset_peak_memory_stats()
     conn = port["LocalConnection"]()
     gen = port["LLMGenerator"](model_cfg, gen_cfg, engine,
                                port["ByteTokenizer"](), conn, kv_max)
@@ -815,11 +1079,33 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         return time.perf_counter() - t, reqs
 
     try:
-        serve(2, 4, 1000)                    # warm-up (first launches)
+        # warm-up: first launches, then the main run's shapes twice, so
+        # that every program key it visits has had its eager first run
+        # and its CUDA graph capture; the main run replays
+        serve(2, 4, 1000)
+        warm = [serve(8, 32, 2000 + 100 * i)[0] for i in range(2)]
+        log(f"[e2e {label}] warm-up passes of the main run's shape: "
+            + ", ".join(f"{w:.3f} s" for w in warm))
+        graphs0 = engine.graph_stats()
+        dispatches0 = dict(engine.dispatch_counts)
         kernels.reset_launch_counts()
         elapsed, reqs = serve(8, 32, 0)
         counts = kernels.launch_counts()
+        graphs = engine.graph_stats()
+        replays = graphs["replays"] - graphs0["replays"]
+        dispatches = {k: v - dispatches0[k]
+                      for k, v in engine.dispatch_counts.items()}
         log(f"[e2e {label}] launch counts over the main-path run: {counts}")
+        peak, held = (torch.cuda.max_memory_allocated() >> 20,
+                      torch.cuda.memory_reserved() >> 20)
+        log(f"[e2e {label}] dispatches {dispatches}; CUDA graphs "
+            f"{graphs['graphs']} captured, {replays} replays in the run; "
+            f"device memory while serving: peak allocated {peak} MiB, "
+            f"held by the allocator (graph pools included) {held} MiB")
+        if engine.multi_step_block > 1:
+            check(dispatches["fed"] + dispatches["continuation"] > 0,
+                  f"e2e {label}: no device-fed or continuation dispatch")
+            check(replays > 0, f"e2e {label}: no CUDA graph replayed")
         for r in reqs:
             toks = conn.tokens.get(r.id, [])
             check(r.id not in conn.failures,
@@ -869,7 +1155,10 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         return dict(path=label, launches=counts, elapsed_s=elapsed,
                     gen_tok_per_s=n_tok / elapsed, prompt_tokens=prompt_tok,
                     setup_s=setup_s, profiled_wall_ms=p_elapsed * 1e3,
-                    device_busy_ms=busy_ms)
+                    device_busy_ms=busy_ms, dispatches=dispatches,
+                    graphs=graphs["graphs"], graph_replays=replays,
+                    serving_peak_mib=peak, held_mib=held,
+                    tokens={r.id: list(conn.tokens[r.id]) for r in reqs})
     finally:
         gen.shutdown()
         del engine, gen
@@ -888,6 +1177,7 @@ def main():
         return 1
     try:
         from ppl.llm.serving_tpu_torch import config as port_config
+        from ppl.llm.serving_tpu_torch import engine as port_engine
         from ppl.llm.serving_tpu_torch.connection import LocalConnection
         from ppl.llm.serving_tpu_torch.engine import (
             compute_kv_cache_max_tokens)
@@ -911,7 +1201,7 @@ def main():
     from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention
     from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul
     port = dict(config=port_config, kernels=kernels, llama=llama,
-                pk=paged_attention,
+                pk=paged_attention, engine=port_engine,
                 kv=kv_cache, samp=sampling,
                 ModelConfig=port_config.ModelConfig,
                 create_engine=create_engine,
@@ -949,6 +1239,13 @@ def main():
                 torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
                 quantized, which, label)
             torch.cuda.empty_cache()
+        for widths, quantized, label, tail_lens in (
+                (LLAMA7B, True, "llama2-7b int8-kv", (1, 7)),
+                (TINY, False, "tinyllama", (1, 7))):
+            results["paged_decode_attention"] += tail_cases(
+                torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
+                quantized, tail_lens, label)
+            torch.cuda.empty_cache()
         results["i8i8_matmul"] = i8i8_cases(torch, timer, quant_matmul,
                                             quant_ops)
         results["w4a8_matmul"] = w4a8_cases(torch, timer, quant_matmul,
@@ -958,9 +1255,10 @@ def main():
         log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
+        steps = {}
         for quant, widths in (("none", TINY), ("online_i8i8", TINY),
                               ("online_w4a8", LLAMA7B)):
-            sx = step_cross_check(torch, port, quant, widths)
+            sx = steps[quant] = step_cross_check(torch, port, quant, widths)
             sens = ("" if not sx["sensitivity"] else
                     "; 1e-6 attention perturbations move them "
                     + ", ".join(f"{v:.3g}" for v in sx["sensitivity"])
@@ -975,6 +1273,20 @@ def main():
                 f"(equal on {sx['rows_decided']}/{sx['rows']} rows whose "
                 f"top-2 margin exceeds twice the logit error)")
             torch.cuda.empty_cache()
+        for block_tail in ("auto", "on"):
+            bx = block_cross_check(torch, port, block_tail,
+                                   steps["online_w4a8"])
+            log(f"[block] 2-layer D=4096 f32 w4a8 + int8 KV, 4-step block, "
+                f"block_tail={block_tail}: CUDA graph replay equals the "
+                f"eager block bit for bit (launches per replay "
+                f"{ {k: n for k, n in bx['graph_launches'].items() if n} }); "
+                f"cuda vs cpu: greedy tokens "
+                f"equal {bx['tokens']}, logprobs max|diff| "
+                f"{bx['logprob_max_abs_err']:.3g}, written cache rows "
+                f"({bx['rows_written']}) max|diff| "
+                f"{bx['cache_max_abs_err']:.3g} (tol "
+                f"{steps['online_w4a8']['cache_tol']:.3g})")
+            torch.cuda.empty_cache()
         log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
 
         e2e = {}
@@ -983,6 +1295,15 @@ def main():
             e2e[label] = end_to_end(torch, port, name_limit, label, widths,
                                     resource, launched, idle)
             log(f"[phase 5 {label}] {time.perf_counter() - t0:.1f} s")
+        base = e2e["llama2-7b w4a8 int8-kv"]["tokens"]
+        for label in ("llama2-7b w4a8 int8-kv blocks",
+                      "llama2-7b w4a8 int8-kv block-tail"):
+            got = e2e[label]["tokens"]
+            same = sum(got[i] == base[i] for i in base)
+            e2e[label]["requests_equal_to_multi_step_1"] = same
+            log(f"[e2e {label}] {same} of {len(base)} requests' 32 tokens "
+                f"equal the multi_step=1 path's (reported, not gated: bf16 "
+                f"sums may run in another order)")
     except PhaseError as e:
         log(f"FAIL: {e}")
         return 1
@@ -1021,6 +1342,10 @@ def main():
             name=name, route="cuda", source=src, replaces=rep,
             launches=e2e[path]["launches"][name],
             launches_by_path={k: v["launches"][name] for k, v in e2e.items()},
+            **({"tail_launches_by_path": {
+                k: v["launches"]["paged_decode_attention_tail"]
+                for k, v in e2e.items()}}
+               if name == "paged_decode_attention" else {}),
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],

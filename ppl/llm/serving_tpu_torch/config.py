@@ -189,11 +189,16 @@ class GeneratorConfig:
     max_cooldown_request: int = 2
     enable_prefix_cache: bool = False
     max_prefill_batch: int = 64
-    # decode-block pipeline depth; only acts when the engine runs
-    # multi-step blocks, which the port does not yet (multi_step=1)
+    # decode-block pipeline depth: how many further decode blocks may be
+    # dispatched ahead with device-fed tokens beyond the one in flight
+    # (0 = none), so the host's fetch and bookkeeping of block k overlap
+    # the device's block k+1; costs up to depth * multi_step steps of
+    # discarded work after a finish
     speculative_blocks: int = 1
-    # prefill admission cadence; like speculation it only acts on
-    # multi-step blocks (generator._admission_gated)
+    # prefill admission cadence (active with multi-step blocks): after a
+    # prefill-carrying step, run N pure-decode blocks before admitting
+    # more prefills (0 = admit every step), so saturating arrivals can't
+    # pin the engine in single-step mixed steps (generator._admission_gated)
     prefill_admission_cadence: int = 1
     enable_profiling: bool = False
     profile_step_interval: int = 100
@@ -266,8 +271,11 @@ class ResourceConfig:
     # instead of a full-vocab sort; 0 = full sort
     sampling_top_k_cap: int = 256
 
-    # decode steps per host round trip; the port runs the per-step loop
-    multi_step: int = 1
+    # decode-block size: N decode steps per dispatch and per host round
+    # trip, each block one CUDA graph on the card (1 = per-step loop)
+    multi_step: int = 8
+    # "auto"/"off": blocks write the cache after every step; "on": once
+    # per block, the block's own K/V read by K1's tail phase meanwhile
     block_tail: str = "auto"
 
     def validate(self) -> None:
@@ -289,13 +297,11 @@ class ResourceConfig:
                               "tensor_parallel_size == 1")
         if self.tensor_parallel_size > 1:
             raise not_ported("tensor parallelism (tensor_parallel_size>1)")
-        if self.multi_step != 1:
-            raise not_ported(f"multi-step decode blocks (multi_step="
-                             f"{self.multi_step}; use 1)")
         if self.block_tail not in ("auto", "on", "off"):
             raise ConfigError(f"unknown block_tail {self.block_tail}")
-        if self.block_tail == "on":
-            raise not_ported("block_tail=on")
+        if self.block_tail == "on" and self.multi_step > 64:
+            # K1's tail phase reads the block's rows as one 64-row chunk
+            raise ConfigError("block_tail='on' takes multi_step <= 64")
         if self.model_format != "random":
             raise not_ported(f"model_format={self.model_format!r} "
                              "(weights load as 'random' only)")

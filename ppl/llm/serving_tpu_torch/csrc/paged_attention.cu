@@ -6,7 +6,8 @@
 //   K2  ppl/llm/serving_tpu/ops/pallas/paged_attention.py:paged_prefill_attention
 //       (body _prefill_kernel)
 // in their deferred-append form, over a bf16/f32 cache or an int8 cache
-// with group-8 scales (no ALiBi, no block tail: those are later slices).
+// with group-8 scales; K1 also in block-tail mode (no ALiBi: a later
+// slice).
 //
 // Cache layout (ops/kv_cache.py): [KVH, L*num_slots, 2*shd] packed rows,
 // k in lanes [0, hd), v in lanes [shd, shd+hd); layer l's slot s is row
@@ -37,6 +38,13 @@
 //   (head, dim) outputs. The current token's fresh k/v joins last as the
 //   self-term. q is scaled by hd^-0.5 before both the page dots and the
 //   self dot, as the Pallas kernel does. Rows with ctx == 0 write zeros.
+//   Block-tail mode (a multi-step decode block that writes the cache once
+//   at its end): the cache is tail_len more tokens behind, so the page
+//   walk covers ctx - 1 - tail_len tokens, and rows j < tail_len of the
+//   block's dense side buffer [L, B, KVH, J, 2*shd] (int8 rows with their
+//   own scale rows [L, B, J, scale_lanes]) join as one more chunk before
+//   the self-term. J <= CH, so the tail is one chunk through the same
+//   load_kv_chunk path as the pages (a fresh slab starting at position 0).
 //   Nothing splits the context across CTAs yet (split-K is a later PR),
 //   so a small batch fills few SMs.
 // - K2: one CTA per (prefill row, q block, kv head); a q block is
@@ -192,7 +200,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const int* __restrict__ page_table, const int* __restrict__ ctx,
     const T* __restrict__ fk, const T* __restrict__ fv, T* __restrict__ out,
     int Hq, int KVH, int hd, int shd, int P, int ps, long long LS,
-    long long lbase, int CH, float sm_scale) {
+    long long lbase, int CH, float sm_scale, const TC* __restrict__ tkv,
+    const __nv_bfloat16* __restrict__ tscale, const int* __restrict__ tlen,
+    int J, int layer) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int G = Hq / KVH;
@@ -214,7 +224,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int i = tid; i < GH; i += nt) o[i] = from_f<T>(0.f);
     return;
   }
-  const int n = ctx_t - 1;  // cached tokens; the current one is the self-term
+  // tail rows of the block side buffer (0 outside block-tail mode)
+  const int tl = tkv != nullptr ? max(0, min(tlen[0], J)) : 0;
+  // cached tokens: the current one is the self-term, the tail rows precede it
+  const int n = max(ctx_t - 1 - (tkv != nullptr ? tlen[0] : 0), 0);
   const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * hd;
   for (int i = tid; i < GH; i += nt) q_s[i] = to_f(qb[i]) * sm_scale;
   for (int g = tid; g < G; g += nt) { m_s[g] = kNegInf; l_s[g] = 0.f; }
@@ -226,10 +239,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const TC* cache_h = cache + (size_t)h * LS * (2 * shd);
   const ScaleRows cs{scale, scale_lanes, h * 2 * (hd / kKvGroup)};
   const int* pt = page_table + (size_t)b * P;
-  for (int c0 = 0; c0 < n; c0 += CH) {
-    const int cn = min(CH, n - c0);
+  // this (layer, row, head)'s tail rows and scale rows
+  const TC* trow = tkv == nullptr ? nullptr
+      : tkv + (((size_t)layer * gridDim.x + b) * KVH + h) * (size_t)J * (2 * shd);
+  const ScaleRows ts{tscale + (tscale ? ((size_t)layer * gridDim.x + b) * J * scale_lanes : 0),
+                     scale_lanes, cs.head_off};
+  const int n_page_chunks = (n + CH - 1) / CH;
+  for (int ci = 0; ci < n_page_chunks + (tl > 0); ++ci) {
+    const bool tail = ci == n_page_chunks;
+    const int c0 = tail ? 0 : ci * CH;
+    const int cn = tail ? tl : min(CH, n - c0);
     load_kv_chunk<TC>(kv_s, CH, c0, cn, hd, shd, cache_h, cs, pt, P, ps,
-                      lbase, nullptr, cs, 0);
+                      lbase, tail ? trow : nullptr, ts, 0);
     __syncthreads();
     for (int e = tid; e < G * CH; e += nt) {
       const int g = e / CH, t = e - g * CH;
@@ -467,11 +488,17 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// Raise a kernel's dynamic shared-memory limit once per size it grows to,
+// so a launch recorded into a CUDA graph (after an eager run of the same
+// shapes) makes no attribute call.
+template <auto Kern>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
 }
 
 // Everything a launch needs besides the kernel's own shapes.
@@ -490,17 +517,20 @@ struct Args {
 
 template <typename T, typename TC>
 int launch_decode(const Args& a, const int* ctx, const void* fk,
-                  const void* fv, int B, int CH) {
+                  const void* fv, int B, int CH, const void* tkv,
+                  const __nv_bfloat16* tscale, const int* tlen, int J,
+                  int layer) {
   const int G = a.Hq / a.KVH;
   const size_t smem = sizeof(float) *
       ((size_t)G * a.hd + (size_t)CH * (2 * a.hd + 1) + (size_t)G * CH + 3 * G);
-  cudaError_t err = allow_smem(paged_decode_kernel<T, TC>, smem);
+  cudaError_t err = allow_smem<paged_decode_kernel<T, TC>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, a.KVH);
   paged_decode_kernel<T, TC><<<grid, kThreads, smem, a.stream>>>(
       (const T*)a.q, (const TC*)a.cache, a.scale, a.scale_lanes, a.pt, ctx,
       (const T*)fk, (const T*)fv, (T*)a.out, a.Hq, a.KVH, a.hd, a.shd, a.P,
-      a.ps, a.LS, a.lbase, CH, a.sm_scale);
+      a.ps, a.LS, a.lbase, CH, a.sm_scale, (const TC*)tkv, tscale, tlen, J,
+      layer);
   return (int)cudaGetLastError();
 }
 
@@ -513,7 +543,7 @@ int launch_prefill_hd(const Args& a, const int* start, const int* new_len,
   const size_t smem = sizeof(float) *
       ((size_t)kRows * HD + (size_t)kChunk * (2 * HD + 1) +
        (size_t)kRows * (kChunk + 1) + 3 * kRows);
-  cudaError_t err = allow_smem(paged_prefill_kernel<T, TC, HD>, smem);
+  cudaError_t err = allow_smem<paged_prefill_kernel<T, TC, HD>>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Bp, (Qp + QB - 1) / QB, a.KVH);
   paged_prefill_kernel<T, TC, HD><<<grid, kThreads, smem, a.stream>>>(
@@ -547,7 +577,10 @@ int launch_prefill(const Args& a, const int* start, const int* new_len,
 // Plain C interface (loaded with ctypes). dtype (of q, the output and the
 // decode self-term): 0 = float32, 1 = bfloat16. quant: 0 = the cache has
 // q's dtype, 1 = int8 cache with bf16 scale rows. Every function returns
-// the cudaError_t of its launch (0 = success).
+// the cudaError_t of its launch (0 = success). Decode in block-tail mode
+// takes the side buffer tail_kv (and its scale rows tail_scale when int8),
+// J rows per (layer, row, head), and the device count tail_len; tail_kv
+// null is the plain deferred mode.
 extern "C" {
 
 int ppl_paged_decode_attention(int dtype, int quant, const void* q,
@@ -558,17 +591,18 @@ int ppl_paged_decode_attention(int dtype, int quant, const void* q,
                                int KVH, int hd, int shd, int P, int page_size,
                                long long ls_rows, int layer,
                                long long num_slots, int chunk, float sm_scale,
-                               void* stream) {
+                               const void* tail_kv, const void* tail_scale,
+                               const int* tail_len, int J, void* stream) {
   const Args a{q, cache, (const __nv_bfloat16*)scale, scale_lanes, page_table,
                out, Hq, KVH, hd, shd, P, page_size, ls_rows,
                (long long)layer * num_slots, sm_scale, (cudaStream_t)stream};
-  if (dtype == 0)
-    return quant ? launch_decode<float, int8_t>(a, ctx, fresh_k, fresh_v, B, chunk)
-                 : launch_decode<float, float>(a, ctx, fresh_k, fresh_v, B, chunk);
-  return quant
-      ? launch_decode<__nv_bfloat16, int8_t>(a, ctx, fresh_k, fresh_v, B, chunk)
-      : launch_decode<__nv_bfloat16, __nv_bfloat16>(a, ctx, fresh_k, fresh_v, B,
-                                                    chunk);
+  const __nv_bfloat16* ts = (const __nv_bfloat16*)tail_scale;
+#define PPL_DECODE(T, TC) \
+  launch_decode<T, TC>(a, ctx, fresh_k, fresh_v, B, chunk, tail_kv, ts, tail_len, J, layer)
+  if (dtype == 0) return quant ? PPL_DECODE(float, int8_t) : PPL_DECODE(float, float);
+  return quant ? PPL_DECODE(__nv_bfloat16, int8_t)
+               : PPL_DECODE(__nv_bfloat16, __nv_bfloat16);
+#undef PPL_DECODE
 }
 
 int ppl_paged_prefill_attention(int dtype, int quant, const void* q,

@@ -2,24 +2,29 @@
 
 The host logic is the JAX package's (``serving_tpu/engine.py``) verbatim:
 ``TaskState``, the bucket tables, ``build_plan``, the packed-plan layout,
-the ``fetch_plan_result`` reorder, ``padded_prefill_tokens`` and
-``prompt_row_cap``. The device parts are PyTorch's own:
+multi-step decode blocks with device-fed tokens and device-resident
+continuation, the ``fetch_plan_result`` reorder, ``padded_prefill_tokens``
+and ``prompt_row_cap``. The device parts are PyTorch's own:
 
-- the step runs eagerly (one ``make_step_fn`` per greedy/sampled variant;
-  there is nothing to compile per bucket),
+- one runner per program key ``(n_steps, feed, bd, bp, qp, kvp, greedy,
+  cont)``, the JAX package's one jitted program per bucket. On the CPU it
+  runs eagerly; on cuda its first visit runs eagerly (the warm-up: kernel
+  libraries, cuBLAS handles), its second captures it as one CUDA graph,
+  and every later visit replays that graph (:class:`_Runner`),
 - the KV cache (with its bf16 scale rows under int8 KV) and the penalty
   count map are preallocated once and every step updates them in place
-  (the JAX package donates them instead),
+  (the JAX package donates them instead); none is reallocated after a
+  capture,
 - the plan goes down as one packed int32 buffer, copied from pinned
   memory without blocking, and the sampled tokens come back the same way
   into pinned host buffers behind a CUDA event that
   :meth:`fetch_plan_result` waits on,
-- each step's random numbers come from a ``torch.Generator`` seeded from
-  (seed, step), where the JAX package folds the step into its PRNG key.
+- each dispatch's random numbers come from a ``torch.Generator`` seeded
+  from (seed, dispatch), drawn for the whole block before it runs, where
+  the JAX package folds the dispatch and step into its PRNG key.
 
-Multi-step decode blocks, their continuation runner, AOT, prewarm and
-bucket-grid validation are not ported: the port runs the per-step loop
-(``multi_step=1``), which never takes those paths.
+AOT, prewarm and bucket-grid validation are not ported: a CUDA graph is
+captured at a key's second visit instead.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from .config import GeneratorConfig, ModelConfig, ResourceConfig
 from .models import llama
+from .ops import kernels
 from .ops import kv_cache as kv_ops
 from .ops import sampling as sampling_ops
 from .ops.kv_cache import CacheSpec
@@ -87,6 +93,64 @@ def _bucket(value: int, buckets: Sequence[int]) -> int:
 _PREFILL_ROW_BUCKETS = (0, 1, 2, 4, 8, 16, 32, 64)
 
 
+class _Runner:
+    """One program key's block ``fn(packed, advance, prev_tokens, gumbel)
+    -> (tokens [N, B], logprobs [N, B])``.
+
+    On the CPU every visit runs ``fn`` eagerly. On cuda the first visit
+    runs it eagerly; the second captures it into a CUDA graph over static
+    copies of its inputs and replays it; later visits copy their inputs
+    into those buffers and replay. A block runs once per visit: capture
+    records without executing (the penalty count map's scatter-add is not
+    idempotent). A capture failure raises.
+
+    The kernel wrappers' checks and launch counters run only while the
+    graph is captured, so the capture's launches are taken back off the
+    counters and every replay adds them again. The returned tensors are
+    the graph's static outputs, which the next replay overwrites: the
+    caller copies them out before it dispatches again.
+    """
+
+    def __init__(self, fn, device: torch.device):
+        self.fn = fn
+        self.device = device
+        self.visits = 0
+        self.replays = 0
+        self.graph = None
+        self.static_in: List[Optional[torch.Tensor]] = []
+        self.static_out: Tuple[torch.Tensor, ...] = ()
+        self.launches: Dict[str, int] = {}
+
+    def __call__(self, *args):
+        self.visits += 1
+        if self.device.type != "cuda" or self.visits == 1:
+            return self.fn(*args)
+        if self.graph is None:
+            self._capture(args)
+        for dst, src in zip(self.static_in, args):
+            if dst is not None:
+                dst.copy_(src, non_blocking=True)
+        self.graph.replay()
+        kernels.add_launch_counts(self.launches)
+        self.replays += 1
+        return self.static_out
+
+    def _capture(self, args) -> None:
+        self.static_in = [None if a is None else a.clone() for a in args]
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.fn(*self.static_in)
+        after = kernels.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
+        self.graph, self.static_out = graph, out
+        logger.info("captured a CUDA graph, launches per replay %s; peak "
+                    "device memory %d MiB",
+                    {k: n for k, n in self.launches.items() if n},
+                    torch.cuda.max_memory_allocated(self.device) >> 20)
+
+
 class LLMEngine:
     """Owns device state and runs one continuous-batching step."""
 
@@ -113,9 +177,16 @@ class LLMEngine:
             self.count_map = torch.zeros((1, 1), dtype=torch.int32,
                                          device=self.device)
         self.top_k_cap = resource_cfg.sampling_top_k_cap
-        self._steps: Dict[bool, Any] = {}
-        self._multi_step = 1
+        self._runners: Dict[Tuple, _Runner] = {}
+        self._multi_step = max(1, resource_cfg.multi_step)
+        self._block_tail = resource_cfg.block_tail
+        # device [B_bucket] sampled tokens of the last dispatch's last
+        # step: the tokens a device-fed block starts from
+        self._last_final_tokens: Optional[torch.Tensor] = None
         self._last_handle: Optional[Dict[str, Any]] = None
+        # dispatches by kind: host-fed plans, device-fed plans, and
+        # continuations of a device-resident plan
+        self.dispatch_counts = {"plan": 0, "fed": 0, "continuation": 0}
         self._trace = None
         self._trace_dir = ""
 
@@ -156,11 +227,12 @@ class LLMEngine:
             parts.append(arr.ravel())
         return np.concatenate(parts)
 
-    def _unpack(self, packed: torch.Tensor,
-                shapes: Dict[str, Tuple[int, ...]]) -> llama.StepInput:
+    @staticmethod
+    def _unpack(packed: torch.Tensor,
+                shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, torch.Tensor]:
         f = {}
         ofs = 0
-        for name, kind in self._PACK_FIELDS:
+        for name, kind in LLMEngine._PACK_FIELDS:
             shape = shapes[name]
             n = int(np.prod(shape))
             x = packed[ofs: ofs + n].reshape(shape)
@@ -170,6 +242,10 @@ class LLMEngine:
             elif kind == "bool":
                 x = x != 0
             f[name] = x
+        return f
+
+    @staticmethod
+    def _make_input(f: Dict[str, torch.Tensor]) -> llama.StepInput:
         return llama.StepInput(
             decode_tokens=f["decode_tokens"], decode_pos=f["decode_pos"],
             prefill_tokens=f["prefill_tokens"],
@@ -183,16 +259,65 @@ class LLMEngine:
                 presence_penalty=f["pres_pen"],
                 frequency_penalty=f["freq_pen"]))
 
-    def _get_step(self, greedy: bool):
-        fn = self._steps.get(greedy)
-        if fn is None:
-            fn = llama.make_step_fn(
-                self.model_cfg, self.spec,
-                enable_penalty=self.enable_penalty,
-                quant_method=self.resource_cfg.quant_method,
-                top_k_cap=self.top_k_cap, greedy_only=greedy)
-            self._steps[greedy] = fn
-        return fn
+    def _get_runner(self, n_steps: int, feed: bool, bd: int, bp: int,
+                    qp: int, kvp: int, greedy: bool = False,
+                    cont: bool = False) -> _Runner:
+        """The runner of one program key (the JAX package's
+        ``_get_packed_runner``). ``feed``: the decode tokens are the
+        previous dispatch's last sampled tokens, on the device. ``cont``:
+        a continuation re-runs a device-resident packed plan with
+        positions and context lengths advanced by ``advance``."""
+        key = (n_steps, feed, bd, bp, qp, kvp, greedy, cont)
+        runner = self._runners.get(key)
+        if runner is not None:
+            return runner
+        kwargs = dict(enable_penalty=self.enable_penalty,
+                      quant_method=self.resource_cfg.quant_method,
+                      top_k_cap=self.top_k_cap, greedy_only=greedy)
+        if n_steps > 1:
+            inner = llama.make_multi_step_fn(
+                self.model_cfg, self.spec, n_steps,
+                block_tail=self._block_tail, **kwargs)
+        else:
+            step = llama.make_step_fn(self.model_cfg, self.spec, **kwargs)
+
+            def inner(params, kv_cache, kv_scale, count_map, inp, gumbel):
+                out = step(params, kv_cache, kv_scale, count_map, inp,
+                           None if gumbel is None else gumbel[0])
+                return out.tokens[None], out.logprobs[None]
+        b = bd + bp
+        shapes = {
+            "decode_tokens": (bd,), "decode_pos": (bd,),
+            "prefill_tokens": (bp, qp), "prefill_start": (bp,),
+            "prefill_len": (bp,), "page_table": (b, kvp),
+            "context_len": (b,), "batch_slots": (b,),
+            "temperature": (b,), "top_k": (b,), "top_p": (b,),
+            "do_sample": (b,), "rep_pen": (b,), "pres_pen": (b,),
+            "freq_pen": (b,),
+        }
+
+        # the block holds the device state itself, not the engine (no
+        # reference cycle: a dropped engine frees its graphs and pools)
+        state = (self._params, self.kv_cache, self.kv_scale, self.count_map)
+
+        def block(packed, advance, prev_tokens, gumbel):
+            f = LLMEngine._unpack(packed, shapes)
+            if cont:
+                f["decode_pos"] = f["decode_pos"] + advance
+                f["context_len"] = f["context_len"] + advance
+            if feed:
+                f["decode_tokens"] = prev_tokens
+            return inner(*state, LLMEngine._make_input(f), gumbel)
+
+        runner = _Runner(block, self.device)
+        self._runners[key] = runner
+        return runner
+
+    def graph_stats(self) -> Dict[str, int]:
+        """Captured CUDA graphs and their replays so far."""
+        return {"graphs": sum(r.graph is not None
+                              for r in self._runners.values()),
+                "replays": sum(r.replays for r in self._runners.values())}
 
     def padded_prefill_tokens(self, n_rows: int, max_chunk_len: int) -> int:
         """The PADDED prefill footprint of the plan (row bucket x token
@@ -323,77 +448,98 @@ class LLMEngine:
             },
         }
 
-    def _step_generator(self) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._seed * 1_000_003 + self._step_counter)
-        return gen
-
-    def dispatch_plan(self, plan: Dict[str, Any], profiler=None
-                      ) -> Dict[str, Any]:
-        """Enqueue a plan's step on the device; returns a handle for
-        :meth:`fetch_plan_result`."""
-        if plan.get("feed_device_tokens"):
-            raise NotImplementedError(
-                "device-fed decode blocks are not yet ported to "
-                "serving_tpu_torch")
-        t0 = time.perf_counter_ns()
-        a = plan["arrays"]
-        bd = plan["bd"]
-        bp, qp = a["prefill_tokens"].shape
-        kvp = a["page_table"].shape[1]
-        b = bd + bp
-        packed = torch.from_numpy(self._pack_arrays(a))
-        cuda = self.device.type == "cuda"
-        if cuda:
-            packed = packed.pin_memory().to(self.device, non_blocking=True)
-        inp = self._unpack(packed, {
-            "decode_tokens": (bd,), "decode_pos": (bd,),
-            "prefill_tokens": (bp, qp), "prefill_start": (bp,),
-            "prefill_len": (bp,), "page_table": (b, kvp),
-            "context_len": (b,), "batch_slots": (b,),
-            "temperature": (b,), "top_k": (b,), "top_p": (b,),
-            "do_sample": (b,), "rep_pen": (b,), "pres_pen": (b,),
-            "freq_pen": (b,),
-        })
-        greedy = plan.get("greedy", False)
-        gumbel = None
-        if not greedy:
-            v = self.model_cfg.vocab_size
-            c = self.top_k_cap if self.top_k_cap and self.top_k_cap < v else v
-            gumbel = sampling_ops.gumbel_noise(
-                (b, c), self._step_generator(), self.device)
+    def _gumbel(self, n_steps: int, b: int, greedy: bool
+                ) -> Optional[torch.Tensor]:
+        """The dispatch's [N, B, C] sampling noise (None when greedy),
+        drawn before the block runs; advances the dispatch counter."""
+        seed = self._seed * 1_000_003 + self._step_counter
         self._step_counter += 1
-        t1 = time.perf_counter_ns()
+        if greedy:
+            return None
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        v = self.model_cfg.vocab_size
+        c = self.top_k_cap if self.top_k_cap and self.top_k_cap < v else v
+        return sampling_ops.gumbel_noise((n_steps, b, c), gen, self.device)
 
-        out = self._get_step(greedy)(self._params, self.kv_cache,
-                                     self.kv_scale, self.count_map, inp,
-                                     gumbel)
-        toks = torch.empty((1, b), dtype=torch.int32, pin_memory=cuda)
-        lps = torch.empty((1, b), dtype=torch.float32, pin_memory=cuda)
-        toks[0].copy_(out.tokens, non_blocking=cuda)
-        lps[0].copy_(out.logprobs, non_blocking=cuda)
+    def _run(self, runner: _Runner, packed: torch.Tensor,
+             advance: Optional[torch.Tensor],
+             prev_tokens: Optional[torch.Tensor],
+             gumbel: Optional[torch.Tensor]) -> Dict[str, Any]:
+        """Run a block and enqueue, right behind it and before anything
+        can replay its graph again, the copies of its results: tokens and
+        logprobs into fresh pinned host buffers, the last step's tokens
+        into a fresh device tensor (what a device-fed block reads)."""
+        toks_dev, lps_dev = runner(packed, advance, prev_tokens, gumbel)
+        cuda = self.device.type == "cuda"
+        toks = torch.empty(toks_dev.shape, dtype=torch.int32,
+                           pin_memory=cuda)
+        lps = torch.empty(lps_dev.shape, dtype=torch.float32,
+                          pin_memory=cuda)
+        toks.copy_(toks_dev, non_blocking=cuda)
+        lps.copy_(lps_dev, non_blocking=cuda)
+        last = toks_dev[-1].clone()
+        self._last_final_tokens = last
         event = None
         if cuda:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
+        return {"toks": toks, "lps": lps, "event": event, "last_dev": last}
+
+    def dispatch_plan(self, plan: Dict[str, Any], profiler=None
+                      ) -> Dict[str, Any]:
+        """Enqueue a plan's step or decode block on the device; returns a
+        handle for :meth:`fetch_plan_result`.
+
+        With ``plan["feed_device_tokens"]`` the decode tokens are the
+        previous dispatch's last sampled tokens on the device (reordered
+        by ``plan["feed_perm"]`` when the rows moved): the generator
+        dispatches block k+1 before it fetches block k."""
+        t0 = time.perf_counter_ns()
+        a = plan["arrays"]
+        n_steps = plan["n_steps"]
+        bd = plan["bd"]
+        bp, qp = a["prefill_tokens"].shape
+        kvp = a["page_table"].shape[1]
+        packed = torch.from_numpy(self._pack_arrays(a))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            packed = packed.pin_memory().to(self.device, non_blocking=True)
+        feed = bool(plan.get("feed_device_tokens")
+                    and self._last_final_tokens is not None)
+        if feed and plan.get("feed_perm") is not None:
+            # the previous dispatch's tokens sit at its bucket rows (e.g.
+            # prefill rows bd..bd+bp); reorder them to this plan's rows
+            perm = torch.from_numpy(np.asarray(plan["feed_perm"], np.int64))
+            self._last_final_tokens = self._last_final_tokens.index_select(
+                0, perm.to(self.device))
+        greedy = plan.get("greedy", False)
+        runner = self._get_runner(n_steps, feed, bd, bp, qp, kvp,
+                                  greedy=greedy)
+        gumbel = self._gumbel(n_steps, bd + bp, greedy)
+        self.dispatch_counts["fed" if feed else "plan"] += 1
+        t1 = time.perf_counter_ns()
+
+        res = self._run(runner, packed, None,
+                        self._last_final_tokens if feed else None, gumbel)
         t2 = time.perf_counter_ns()
 
         if profiler is not None:
             c = profiler.current
             c.set_input_cost = (t1 - t0) // 1000
             c.model_forward_cost = (t2 - t1) // 1000
-        handle = {"toks": toks, "lps": lps, "event": event,
-                  "n_steps": 1, "bd": bd, "n_tasks": plan["n_tasks"],
-                  "decode_idx": plan["decode_idx"],
-                  "prefill_idx": plan["prefill_idx"],
-                  "advance": 0, "bp": bp, "qp": qp, "kvp": kvp,
-                  "greedy": greedy}
+        handle = dict(res, n_steps=n_steps, bd=bd, n_tasks=plan["n_tasks"],
+                      decode_idx=plan["decode_idx"],
+                      prefill_idx=plan["prefill_idx"],
+                      # continuation support (dispatch_continuation)
+                      packed_dev=packed, advance=0, bp=bp, qp=qp, kvp=kvp,
+                      greedy=greedy)
         self._last_handle = handle
         return handle
 
     @property
     def multi_step_block(self) -> int:
-        """Decode-block size (steps per dispatch); 1 in the port."""
+        """Decode-block size (steps per dispatch)."""
         return self._multi_step
 
     @property
@@ -403,8 +549,9 @@ class LLMEngine:
     def continuation_fits(self, handle: Dict[str, Any],
                           tasks: List[TaskState]) -> bool:
         """True when another ``n_steps`` decode block after ``handle``
-        still fits its page-table bucket. Single-step handles (all of the
-        port's) can't continue."""
+        still fits the handle's page-table bucket. Prefill-carrying and
+        single-step bases can't continue: their packed plan has the wrong
+        shape."""
         n = handle["n_steps"]
         if n <= 1 or handle["bp"] != 0:
             return False
@@ -413,10 +560,39 @@ class LLMEngine:
                       for t in tasks)
         return -(-max_tok // self.spec.page_size) <= handle["kvp"]
 
-    def dispatch_continuation(self, handle=None, profiler=None):
-        raise NotImplementedError(
-            "multi-step continuation blocks are not yet ported to "
-            "serving_tpu_torch")
+    def dispatch_continuation(self, handle: Optional[Dict[str, Any]] = None,
+                              profiler=None) -> Dict[str, Any]:
+        """Dispatch the next decode block after ``handle`` with no host
+        plan assembly: the device-resident packed plan again, positions
+        and context lengths advanced on the device, the base block's last
+        sampled tokens fed. ``handle=None`` continues this engine's most
+        recent dispatch."""
+        if handle is None:
+            handle = self._last_handle
+        t0 = time.perf_counter_ns()
+        n_steps = handle["n_steps"]
+        adv = handle["advance"] + n_steps
+        runner = self._get_runner(
+            n_steps, True, handle["bd"], handle["bp"], handle["qp"],
+            handle["kvp"], greedy=handle["greedy"], cont=True)
+        advance = torch.full((1,), adv, dtype=torch.int32,
+                             device=self.device)
+        gumbel = self._gumbel(n_steps, handle["bd"] + handle["bp"],
+                              handle["greedy"])
+        self.dispatch_counts["continuation"] += 1
+        res = self._run(runner, handle["packed_dev"], advance,
+                        handle["last_dev"], gumbel)
+        t1 = time.perf_counter_ns()
+        if profiler is not None:
+            profiler.current.model_forward_cost = (t1 - t0) // 1000
+        out = dict(handle, advance=adv, **res)
+        self._last_handle = out
+        return out
+
+    def run_continuation(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Dispatch the block after this engine's last dispatch and wait
+        for its result (the lockstep-worker entry of the JAX package)."""
+        return self.fetch_plan_result(self.dispatch_continuation())
 
     def fetch_plan_result(self, handle: Dict[str, Any], profiler=None
                           ) -> Tuple[np.ndarray, np.ndarray]:

@@ -18,6 +18,11 @@ call processes a mixed continuous batch
   (and scale rows) in the cache, then final norm, lm_head, penalties and
   sampling.
 
+:func:`make_multi_step_fn` chains N decode steps into one block, each
+step's sampled tokens feeding the next on the device, as the JAX
+package's decode blocks do; in block-tail mode the block writes the cache
+once at its end and K1 reads the block's own rows from a side buffer.
+
 The weights keep the JAX package's fused layouts, so its parameters
 convert one to one (:func:`params_from_jax`):
 
@@ -26,8 +31,9 @@ convert one to one (:func:`params_from_jax`):
                                    w4a8: packed [2, D/2, I], scales
                                    [2, D/64, I])
 
-PyTorch runs the step eagerly: the engine calls it on preallocated
-cache, scale-row and count-map tensors, which it updates in place.
+The step and the block run eagerly on preallocated cache, scale-row and
+count-map tensors, which they update in place, with no host
+synchronisation, so the engine can capture a block as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -246,6 +252,13 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
     ``gumbel`` is the [B, C] noise of the sampled rows (C = top_k_cap, or
     the vocab when uncapped); None when ``greedy_only``.
 
+    ``tail=(tail_kv [L,B,KVH,J,2*shd], tail_scale [L,B,J,lanes] | None,
+    tail_len i32[1])``: block-tail mode (decode rows only): the cache is
+    ``tail_len`` tokens behind and the block's own K/V comes from the side
+    buffer. ``defer_scatter``: skip the cache write and return ``(out,
+    rows_l [L,T,KVH,2*shd], srows_l [L,T,lanes] | None, slots i32[T])``
+    so that the block lands one write for all its steps.
+
     The matmuls follow ``quant_method`` ("none", "online_i8i8",
     "online_w4a8"), as the JAX step's do; whether lm_head is quantized
     follows the parameters (an ``lm_head_q`` key).
@@ -272,12 +285,16 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
 
     def step(params, kv_cache: torch.Tensor,
              kv_scale: Optional[torch.Tensor], count_map: torch.Tensor,
-             inp: StepInput, gumbel: Optional[torch.Tensor] = None
-             ) -> StepOutput:
+             inp: StepInput, gumbel: Optional[torch.Tensor] = None,
+             tail=None, defer_scatter: bool = False):
         dev = kv_cache.device
         bd = inp.decode_tokens.shape[0]
         bp, qp = inp.prefill_tokens.shape
+        assert tail is None or bp == 0, "block-tail steps are decode-only"
         i32 = dict(dtype=torch.int32, device=dev)
+        tail_kw = ({} if tail is None else
+                   dict(tail_kv=tail[0], tail_scale=tail[1],
+                        tail_len=tail[2]))
 
         # ---- flat token metadata ------------------------------------------
         prefill_pos = (inp.prefill_start[:, None]
@@ -285,7 +302,7 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
         flat_pos = torch.cat([inp.decode_pos, prefill_pos.reshape(-1)])
         flat_rows = torch.cat([
             torch.arange(bd, **i32),
-            bd + torch.repeat_interleave(torch.arange(bp, **i32), qp),
+            bd + torch.arange(bp, **i32)[:, None].expand(bp, qp).reshape(-1),
         ])
         flat_tokens = torch.cat([inp.decode_tokens,
                                  inp.prefill_tokens.reshape(-1)])
@@ -325,7 +342,7 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                 attn_d = attn_kernels.paged_decode_attention(
                     q[:bd].contiguous(), kv_cache, kv_scale, pt_decode,
                     ctx_decode, spec, layer=li, fresh_k=k[:bd].contiguous(),
-                    fresh_v=v[:bd].contiguous())
+                    fresh_v=v[:bd].contiguous(), **tail_kw)
             else:
                 attn_d = q.new_zeros((0, n_q, hd))
             if bp:
@@ -353,9 +370,11 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                           compute_dtype)
             x = x + down.to(compute_dtype)
 
-        kv_ops.append_kv_rows_block(
-            kv_cache, kv_scale, torch.stack(new_rows),
-            torch.stack(new_srows) if spec.quantized else None, slots, spec)
+        rows_l = torch.stack(new_rows)                      # [L,T,KVH,2*shd]
+        srows_l = torch.stack(new_srows) if spec.quantized else None
+        if not defer_scatter:
+            kv_ops.append_kv_rows_block(kv_cache, kv_scale, rows_l, srows_l,
+                                        slots, spec)
 
         x = rms_norm(x, params["final_norm"], eps)
         last_idx = torch.cat([
@@ -380,7 +399,81 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
         tokens, logprobs = sampling_ops.sample_top_k_top_p(
             logits, inp.sampling, gumbel, top_k_cap=top_k_cap,
             greedy_only=greedy_only)
-        return StepOutput(tokens, logprobs,
-                          logits if return_logits else None)
+        out = StepOutput(tokens, logprobs, logits if return_logits else None)
+        if defer_scatter:
+            return out, rows_l, srows_l, slots
+        return out
 
     return step
+
+
+def make_multi_step_fn(cfg: ModelConfig, spec: CacheSpec, num_steps: int,
+                       block_tail: str = "auto", **step_kwargs):
+    """N decode steps as one block, the sampled tokens feeding the next
+    step on the device (the JAX package's ``make_multi_step_fn``).
+
+    ``block(params, kv_cache, kv_scale, count_map, inp, gumbel)`` takes a
+    decode-only :class:`StepInput` and the [N, B, C] noise of its sampled
+    rows (None when greedy) and returns (tokens i32[N, B], logprobs
+    f32[N, B]). Positions and context lengths advance by one per step for
+    every row, padding rows included; rows that finish mid-block keep
+    writing into their own pages, which are never read again.
+
+    ``block_tail``: "auto" and "off" write the cache after every step;
+    "on" writes it once, at block end: step i >= 1 reads the block's
+    earlier K/V rows from a zeroed side buffer through K1's tail phase,
+    and one write lands all N steps' rows (step-major, so the padding
+    rows' trash slots repeat; the write takes duplicates).
+    """
+    if block_tail not in ("auto", "on", "off"):
+        raise ValueError(f"unknown block_tail {block_tail}")
+    step = make_step_fn(cfg, spec, **step_kwargs)
+    use_tail = block_tail == "on"
+    n_layers, n_kv = cfg.num_layers, cfg.num_kv_heads
+
+    def block(params, kv_cache, kv_scale, count_map, inp: StepInput,
+              gumbel: Optional[torch.Tensor] = None):
+        assert inp.prefill_tokens.shape[0] == 0, (
+            "multi-step blocks are decode-only")
+        tokens, pos, ctx = inp.decode_tokens, inp.decode_pos, inp.context_len
+        b, dev = tokens.shape[0], kv_cache.device
+        toks, lps = [], []
+        if use_tail:
+            tkv = torch.zeros((n_layers, b, n_kv, num_steps, spec.row_lanes),
+                              dtype=kv_cache.dtype, device=dev)
+            tsr = (torch.zeros((n_layers, b, num_steps, spec.scale_lanes),
+                               dtype=torch.bfloat16, device=dev)
+                   if spec.quantized else None)
+            slots = []
+        for i in range(num_steps):
+            it = inp._replace(decode_tokens=tokens, decode_pos=pos,
+                              context_len=ctx)
+            g = None if gumbel is None else gumbel[i]
+            if use_tail:
+                tail = None if i == 0 else (
+                    tkv, tsr, torch.full((1,), i, dtype=torch.int32,
+                                         device=dev))
+                out, rows_l, srows_l, slots_i = step(
+                    params, kv_cache, kv_scale, count_map, it, g,
+                    tail=tail, defer_scatter=True)
+                tkv[:, :, :, i] = rows_l
+                if spec.quantized:
+                    tsr[:, :, i] = srows_l
+                slots.append(slots_i)
+            else:
+                out = step(params, kv_cache, kv_scale, count_map, it, g)
+            tokens = out.tokens
+            pos, ctx = pos + 1, ctx + 1
+            toks.append(out.tokens)
+            lps.append(out.logprobs)
+        if use_tail:
+            rows_cat = tkv.permute(0, 3, 1, 2, 4).reshape(
+                n_layers, num_steps * b, n_kv, spec.row_lanes)
+            srows_cat = (tsr.permute(0, 2, 1, 3).reshape(
+                n_layers, num_steps * b, spec.scale_lanes)
+                if spec.quantized else None)
+            kv_ops.append_kv_rows_block(kv_cache, kv_scale, rows_cat,
+                                        srows_cat, torch.cat(slots), spec)
+        return torch.stack(toks), torch.stack(lps)
+
+    return block

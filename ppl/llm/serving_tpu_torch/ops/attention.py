@@ -11,7 +11,8 @@ Contracts (per layer):
 - decode: one new query token per row, attends to cache[0:context_len).
   Deferred-append mode (``fresh_k/v`` given): the cache holds
   ``context_len - 1`` tokens and the current token's K/V enters as an
-  explicit self-term.
+  explicit self-term. Block-tail mode (``tail_kv`` given) puts the
+  block's earlier tokens between the cache and the self-term.
 - prefill: ``new_len`` new query tokens per row starting at absolute
   position ``start``; causal within the new tokens, full visibility of
   the cached prefix. Deferred mode (``fresh_k/v`` given): positions
@@ -31,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from .kv_cache import CacheSpec, gather_pages
+from .kv_cache import CacheSpec, dequantize_kv, gather_pages
 
 _NEG_INF = -1e30
 
@@ -54,32 +55,69 @@ def decode_attention_ref(
     layer: int = 0,
     fresh_k: Optional[torch.Tensor] = None,  # [B, kv_heads, hd]
     fresh_v: Optional[torch.Tensor] = None,
+    tail_kv: Optional[torch.Tensor] = None,     # [L, B, KVH, J, 2*shd]
+    tail_scale: Optional[torch.Tensor] = None,  # [L, B, J, lanes] if int8
+    tail_len: Optional[torch.Tensor] = None,    # i32[1]
 ) -> torch.Tensor:                   # [B, q_heads, head_dim]
+    """Block-tail mode (``tail_kv`` given, deferred mode only): the cache
+    is ``tail_len`` further tokens behind; the block's own earlier tokens
+    are rows ``j < tail_len`` of ``tail_kv[layer]`` (packed like cache
+    rows, with their scale rows under int8 KV) and join before the
+    self-term. Rows with ``context_len == 0`` then give zeros, as the
+    kernel's tail phase does."""
     b, num_q_heads, head_dim = q.shape
     k, v = gather_pages(cache, scale, page_table, spec, q.dtype, layer)
-    cached_len = context_len
-    if fresh_k is not None:
+    dev = q.device
+    if fresh_k is None:
+        mask = (torch.arange(k.shape[1], device=dev)[None, :]
+                < context_len[:, None])
+    else:
         cached_len = context_len - 1
-        k = torch.cat([k, fresh_k.to(q.dtype)[:, None]], dim=1)
-        v = torch.cat([v, fresh_v.to(q.dtype)[:, None]], dim=1)
+        ks, vs = [k], [v]
+        if tail_kv is not None:
+            cached_len = torch.clamp(cached_len - tail_len, min=0)
+            tk, tv = _tail_rows(tail_kv[layer], None if tail_scale is None
+                                else tail_scale[layer], spec, q.dtype)
+            ks.append(tk)
+            vs.append(tv)
+        mask = [torch.arange(k.shape[1], device=dev)[None, :]
+                < cached_len[:, None]]
+        if tail_kv is not None:
+            jt = tail_kv.shape[3]
+            mask.append((torch.arange(jt, device=dev) < tail_len)[None, :]
+                        .expand(b, jt))
+        mask.append(torch.ones((b, 1), dtype=torch.bool, device=dev))
+        mask = torch.cat(mask, dim=1)                         # [B, KV]
+        k = torch.cat(ks + [fresh_k.to(q.dtype)[:, None]], dim=1)
+        v = torch.cat(vs + [fresh_v.to(q.dtype)[:, None]], dim=1)
     k = _gqa_expand(k, num_q_heads)
     v = _gqa_expand(v, num_q_heads)
-    kv_len = k.shape[1]
     scores = torch.einsum("bhd,bkhd->bhk", q.float(), k.float())
     scores = scores / math.sqrt(head_dim)
-    ar = torch.arange(kv_len, device=q.device)
-    if fresh_k is not None:
-        mask = torch.cat([
-            ar[None, :-1] < cached_len[:, None],
-            torch.ones((b, 1), dtype=torch.bool, device=q.device),
-        ], dim=1)                                             # [B, KV]
-    else:
-        mask = ar[None, :] < context_len[:, None]
     scores = torch.where(mask[:, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype).float(),
-                       v.float())
-    return out.to(q.dtype)
+                       v.float()).to(q.dtype)
+    if tail_kv is not None:
+        out = torch.where((context_len > 0)[:, None, None], out,
+                          torch.zeros((), dtype=out.dtype, device=dev))
+    return out
+
+
+def _tail_rows(rows: torch.Tensor, srows: Optional[torch.Tensor],
+               spec: CacheSpec, dtype):
+    """One layer's side-buffer rows [B, KVH, J, 2*shd] (and scale rows
+    [B, J, lanes] under int8 KV) -> k, v [B, J, KVH, hd] in ``dtype``."""
+    rows = rows.permute(0, 2, 1, 3)
+    k = rows[..., :spec.head_dim]
+    v = rows[..., spec.shd:spec.shd + spec.head_dim]
+    if not spec.quantized:
+        return k.to(dtype), v.to(dtype)
+    b, jt = srows.shape[:2]
+    s = srows[..., :spec.num_kv_heads * spec.scale_lane_stride].reshape(
+        b, jt, spec.num_kv_heads, 2, spec.scale_groups)
+    return (dequantize_kv(k, s[..., 0, :], spec.quant_group, dtype),
+            dequantize_kv(v, s[..., 1, :], spec.quant_group, dtype))
 
 
 def prefill_attention_ref(

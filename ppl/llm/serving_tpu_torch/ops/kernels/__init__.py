@@ -2,7 +2,10 @@
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (or raises). :func:`launch_counts` reads the
-wrappers' launch counters; :func:`reset_launch_counts` sets them to 0.
+wrappers' launch counters (and K1's count of block-tail launches under
+``paged_decode_attention_tail``); :func:`reset_launch_counts` sets them
+to 0; :func:`add_launch_counts` adds the launches a replayed CUDA graph
+holds.
 """
 
 from . import paged_attention, quant_matmul
@@ -15,14 +18,26 @@ WRAPPERS = {
 }
 
 
+# counter name -> (wrapper, attribute)
+COUNTERS = {name: (fn, "launches") for name, fn in WRAPPERS.items()}
+COUNTERS["paged_decode_attention_tail"] = (
+    paged_attention.paged_decode_attention, "tail_launches")
+
+
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
-__all__ = ["paged_attention", "quant_matmul", "WRAPPERS", "launch_counts",
-           "reset_launch_counts"]
+def add_launch_counts(delta: dict) -> None:
+    for name, n in delta.items():
+        fn, attr = COUNTERS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+__all__ = ["paged_attention", "quant_matmul", "WRAPPERS", "COUNTERS",
+           "launch_counts", "reset_launch_counts", "add_launch_counts"]

@@ -5,12 +5,16 @@ Each wrapper dispatches on the device of its tensors. On the CPU it runs
 the plain version from :mod:`..attention`; on a CUDA tensor it launches
 its kernel or raises, never falling back. Each wrapper counts its
 launches in a plain integer attribute (``paged_decode_attention.launches``)
-so a run can show that the main path went through the kernel.
+so a run can show that the main path went through the kernel; decode
+launches in block-tail mode are also counted apart
+(``paged_decode_attention.tail_launches``).
 
 Contracts are those of the JAX package's Pallas kernels
 (``serving_tpu/ops/pallas/paged_attention.py``) in deferred-append mode:
 decode takes the current token's k/v as ``fresh_k/fresh_v`` and writes
-zeros for rows with ``context_len == 0``; prefill takes this step's K/V
+zeros for rows with ``context_len == 0`` (in block-tail mode it also reads
+the block's side buffer ``tail_kv`` rows ``j < tail_len`` between the
+cache and the self-term); prefill takes this step's K/V
 as the packed ``fresh_kv`` slab ``[Bp, KVH, Qp, 2*shd]`` and writes zeros
 for query rows past ``new_len``.
 
@@ -50,7 +54,7 @@ def _lib():
     if not getattr(lib, "_ppl_typed", False):
         lib.ppl_paged_decode_attention.argtypes = [
             _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-            _I, _I, _LL, _I, _LL, _I, _F, _P]
+            _I, _I, _LL, _I, _LL, _I, _F, _P, _P, _P, _I, _P]
         lib.ppl_paged_decode_attention.restype = _I
         lib.ppl_paged_prefill_attention.argtypes = [
             _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -123,14 +127,19 @@ def paged_decode_attention(
     layer: int,
     fresh_k: torch.Tensor,       # [B, KVH, hd]
     fresh_v: torch.Tensor,
+    tail_kv=None,                # [L, B, KVH, J, 2*shd] cache dtype
+    tail_scale=None,             # bf16 [L, B, J, scale_lanes] if int8
+    tail_len=None,               # i32[1]
 ) -> torch.Tensor:               # [B, Hq, hd]
     """K1: decode attention over the paged cache; the cache holds
     ``context_len - 1`` tokens and the current token's k/v enters as a
-    self-term."""
+    self-term. With ``tail_kv`` (block-tail mode) the cache holds
+    ``tail_len`` tokens fewer and those come from the side buffer."""
     if q.device.type == "cpu":
         out = attn_ops.decode_attention_ref(
             q, cache, scale, page_table, context_len, spec, layer=layer,
-            fresh_k=fresh_k, fresh_v=fresh_v)
+            fresh_k=fresh_k, fresh_v=fresh_v, tail_kv=tail_kv,
+            tail_scale=tail_scale, tail_len=tail_len)
         return torch.where((context_len > 0)[:, None, None], out,
                            torch.zeros((), dtype=out.dtype))
     if q.device.type != "cuda":
@@ -151,7 +160,14 @@ def paged_decode_attention(
     if (hq // kvh) * hd > _DEC_MAX_OUT:
         raise ValueError("paged_decode_attention: G*head_dim too large")
     extra = {"scale": scale} if spec.quantized else {}
-    _check_cuda("paged_decode_attention", q.device, ("cache", "scale"), q=q,
+    jt = 0
+    if tail_kv is not None:
+        jt = _check_tail(tail_kv, tail_scale, tail_len, cache, spec, b)
+        extra.update(tail_kv=tail_kv, tail_len=tail_len)
+        if spec.quantized:
+            extra["tail_scale"] = tail_scale
+    _check_cuda("paged_decode_attention", q.device,
+                ("cache", "scale", "tail_kv", "tail_scale"), q=q,
                 cache=cache, page_table=page_table, context_len=context_len,
                 fresh_k=fresh_k, fresh_v=fresh_v, **extra)
     out = torch.empty_like(q)
@@ -164,15 +180,48 @@ def paged_decode_attention(
         fresh_v.data_ptr(), out.data_ptr(), b, hq, kvh, hd, spec.shd,
         page_table.shape[1], spec.page_size, cache.shape[1], layer,
         spec.num_slots, _DECODE_CHUNK, hd ** -0.5,
+        _ptr(extra.get("tail_kv")), _ptr(extra.get("tail_scale")),
+        _ptr(extra.get("tail_len")), jt,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention: launch failed "
                            f"(cudaError {err})")
     paged_decode_attention.launches += 1
+    if tail_kv is not None:
+        paged_decode_attention.tail_launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.tail_launches = 0
+
+
+def _check_tail(tail_kv, tail_scale, tail_len, cache, spec: CacheSpec,
+                b: int) -> int:
+    """Shapes and dtypes of the block-tail arguments; returns J."""
+    name = "paged_decode_attention"
+    if tail_kv.dtype != cache.dtype:
+        raise TypeError(f"{name}: tail_kv dtype {tail_kv.dtype}, expected "
+                        f"the cache's {cache.dtype}")
+    if (tail_kv.ndim != 5 or tuple(tail_kv.shape[:3])
+            != (spec.num_layers, b, spec.num_kv_heads)
+            or tail_kv.shape[4] != spec.row_lanes):
+        raise ValueError(f"{name}: tail_kv shape {tuple(tail_kv.shape)}, "
+                         f"expected ({spec.num_layers}, {b}, "
+                         f"{spec.num_kv_heads}, J, {spec.row_lanes})")
+    jt = tail_kv.shape[3]
+    if not 1 <= jt <= _DECODE_CHUNK:
+        raise ValueError(f"{name}: {jt} tail rows; the tail phase takes "
+                         f"1 to {_DECODE_CHUNK}")
+    if spec.quantized:
+        _check_scale_rows(name, "tail_scale", tail_scale,
+                          (spec.num_layers, b, jt, spec.scale_lanes))
+    elif tail_scale is not None:
+        raise ValueError(f"{name}: tail_scale given for a float cache")
+    if (tail_len is None or tail_len.dtype != torch.int32
+            or tuple(tail_len.shape) != (1,)):
+        raise TypeError(f"{name}: tail_len must be int32 [1]")
+    return jt
 
 
 def paged_prefill_attention(

@@ -43,10 +43,12 @@ def init_count_map(num_slots: int, vocab_size: int, device) -> torch.Tensor:
 def update_count_map(count_map: torch.Tensor, tokens: torch.Tensor,
                      slots: torch.Tensor) -> torch.Tensor:
     """Scatter-add token occurrences in place: tokens i32[T], slots
-    i32[T] (padding tokens carry the trash slot)."""
-    count_map.index_put_((slots.long(), tokens.long()),
-                         torch.ones_like(tokens, dtype=count_map.dtype),
-                         accumulate=True)
+    i32[T] (padding tokens carry the trash slot). One ``index_add_`` on
+    the flat map: no host synchronisation, so it records into a CUDA
+    graph."""
+    flat = slots.long() * count_map.shape[1] + tokens.long()
+    count_map.view(-1).index_add_(
+        0, flat, torch.ones_like(tokens, dtype=count_map.dtype))
     return count_map
 
 

@@ -47,9 +47,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-tokens-scale", type=float, default=0.94)
     p.add_argument("--kv-cache-max-tokens", type=int, default=0,
                    help="override auto KV pool sizing")
-    p.add_argument("--multi-step", type=int, default=1,
-                   help="decode steps per host round trip (only 1 is "
-                        "ported so far)")
+    p.add_argument("--multi-step", type=int, default=8,
+                   help="decode-block size: N decode steps per host round "
+                        "trip, one CUDA graph per block on the card (1 = "
+                        "per-step loop)")
     p.add_argument("--tokenizer-config-path", default="",
                    help="tokenizer_config.json for bos/eos overrides")
     p.add_argument("--sampling-top-k-cap", type=int, default=256,
@@ -59,6 +60,11 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="comma-separated prefill token-count buckets")
     p.add_argument("--batch-buckets", default="",
                    help="comma-separated decode batch buckets")
+    p.add_argument("--block-tail", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="on: one KV-cache write per multi-step block, the "
+                        "block's own K/V read by the decode kernel's tail "
+                        "phase; auto/off: a write after every step")
 
 
 def add_generator_args(p: argparse.ArgumentParser) -> None:
@@ -82,6 +88,9 @@ def add_generator_args(p: argparse.ArgumentParser) -> None:
                    help="feed long prompts in chunks of at most N tokens "
                         "per step (0 = whole prompt in one step)")
     p.add_argument("--profile-step-interval", type=int, default=100)
+    p.add_argument("--speculative-blocks", type=int, default=1,
+                   help="decode-block pipeline depth (0 disables "
+                        "speculative block dispatch)")
     p.add_argument("--trace-dir", default="",
                    help="capture a torch.profiler trace of generator "
                         "steps 10..20 (run must reach step 20)")
@@ -113,6 +122,7 @@ def build_configs(args):
         quant_method=args.quant_method,
         quantize_lm_head=args.quantize_lm_head,
         multi_step=args.multi_step,
+        block_tail=args.block_tail,
         sampling_top_k_cap=args.sampling_top_k_cap,
     )
     if args.token_buckets:
@@ -139,6 +149,7 @@ def build_configs(args):
         enable_prefix_cache=args.enable_prefix_cache,
         enable_profiling=args.enable_profiling,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
+        speculative_blocks=args.speculative_blocks,
         trace_dir=args.trace_dir,
     )
     return model_cfg, resource_cfg, gen_cfg

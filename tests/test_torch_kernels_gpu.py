@@ -9,7 +9,8 @@ softmax sums differs), bf16 2e-2 (bf16 inputs, f32 accumulation on both
 sides, bf16 output rounding); with int8 KV the same (the kernels
 dequantize in f32, exactly as the plain version does before its bf16
 rounding); i8i8 exact in f32 (same quantized operands, exact int32 sums,
-same epilogue order) and within one bf16 rounding in bf16; w4a8 within
+same epilogue order) and within one bf16 rounding in bf16; K1's block-tail
+phase as K1; w4a8 within
 1e-5 of max|ref| in f32 (the groups' f32 partials are added in another
 order) and, in bf16, within 2^-8 |ref| + 1e-5 max|ref| per element.
 """
@@ -201,6 +202,95 @@ def test_int8_prefill_kernel_matches_plain(cuda, dtype, hq, kvh, hd):
         fresh_k=kv_ops.dequantize_kv(qk, sk, 8, dtype),
         fresh_v=kv_ops.dequantize_kv(qv, sv, 8, dtype))
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+def make_tail(spec, b, jt, dev, seed):
+    """A random block side buffer [L, B, KVH, J, 2*hd] (int8 with its
+    scale rows [L, B, J, lanes] when the spec is quantized)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = spec.num_layers * b * jt
+    k = torch.randn((n, spec.num_kv_heads, spec.head_dim), generator=g,
+                    device=dev)
+    v = torch.randn((n, spec.num_kv_heads, spec.head_dim), generator=g,
+                    device=dev)
+    tscale = None
+    if spec.quantized:
+        qk, sk = kv_ops.quantize_kv(k, 8)
+        qv, sv = kv_ops.quantize_kv(v, 8)
+        rows = kv_ops.pack_kv_rows(qk, qv, spec)
+        tscale = kv_ops.pack_scale_rows(sk, sv, spec).reshape(
+            spec.num_layers, b, jt, spec.scale_lanes).contiguous()
+    else:
+        rows = kv_ops.pack_kv_rows(k, v, spec).to(spec.dtype)
+    tkv = rows.reshape(spec.num_layers, b, jt, spec.num_kv_heads,
+                       spec.row_lanes).permute(0, 1, 3, 2, 4).contiguous()
+    return tkv, tscale
+
+
+@pytest.mark.parametrize("tail_len", [0, 1, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_tail_decode_kernel_matches_plain(cuda, tail_len, dtype, quant):
+    """K1 in block-tail mode (J = 8 side-buffer rows): LLaMA-2-7B geometry
+    with int8 KV, TinyLlama geometry with a float cache."""
+    hq, kvh, hd = (32, 32, 128) if quant else (32, 4, 64)
+    spec = CacheSpec(num_layers=2, num_pages=40, page_size=16,
+                     num_kv_heads=kvh, head_dim=hd,
+                     quant_bit=8 if quant else 0,
+                     quant_group=8 if quant else 1, dtype=dtype)
+    if quant:
+        cache, scale = make_int8_cache(spec, cuda, 10)
+    else:
+        cache, scale = make_cache(spec, cuda, 10), None
+    # a padding row (0), a row whose whole context is tail + self (2),
+    # and rows with cached pages
+    ctx = torch.tensor([0, 2, 17, 160, 300, 8], dtype=torch.int32,
+                       device=cuda)
+    b, jt = ctx.numel(), 8
+    tkv, tscale = make_tail(spec, b, jt, cuda, 11)
+    tlen = torch.full((1,), tail_len, dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(12)
+    pt = torch.from_numpy(rng.integers(0, 40, (b, 20)).astype(
+        np.int32)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((b, hq, hd), generator=g, device=cuda).to(dtype)
+    fk = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
+    fv = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv, tail_kv=tkv,
+              tail_scale=tscale, tail_len=tlen)
+    before = pk.paged_decode_attention.tail_launches
+    out = pk.paged_decode_attention(q, cache, scale, pt, ctx, spec, **kw)
+    torch.cuda.synchronize()
+    assert pk.paged_decode_attention.tail_launches == before + 1
+    ref = attn_ops.decode_attention_ref(q, cache, scale, pt, ctx, spec, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+    assert bool((out[0] == 0).all())
+
+
+def test_tail_decode_kernel_checks_its_arguments(cuda):
+    spec = CacheSpec(num_layers=2, num_pages=8, page_size=16, num_kv_heads=2,
+                     head_dim=16, dtype=torch.float32)
+    cache = make_cache(spec, cuda, 14)
+    b = 2
+    q = torch.zeros((b, 4, 16), device=cuda)
+    fk = torch.zeros((b, 2, 16), device=cuda)
+    pt = torch.zeros((b, 2), dtype=torch.int32, device=cuda)
+    ctx = torch.ones(b, dtype=torch.int32, device=cuda)
+    tlen = torch.ones(1, dtype=torch.int32, device=cuda)
+    kw = dict(layer=0, fresh_k=fk, fresh_v=fk, tail_len=tlen)
+    with pytest.raises(ValueError, match="tail rows"):
+        pk.paged_decode_attention(
+            q, cache, None, pt, ctx, spec,
+            tail_kv=torch.zeros((2, b, 2, 65, 32), device=cuda), **kw)
+    with pytest.raises(ValueError, match="tail_kv shape"):
+        pk.paged_decode_attention(
+            q, cache, None, pt, ctx, spec,
+            tail_kv=torch.zeros((2, b + 1, 2, 8, 32), device=cuda), **kw)
+    with pytest.raises(TypeError, match="tail_kv dtype"):
+        pk.paged_decode_attention(
+            q, cache, None, pt, ctx, spec,
+            tail_kv=torch.zeros((2, b, 2, 8, 32), device=cuda,
+                                dtype=torch.bfloat16), **kw)
 
 
 @pytest.mark.parametrize("group", [32, 64])

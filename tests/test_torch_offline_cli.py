@@ -26,21 +26,43 @@ TINY_INT8KV = os.path.join(REPO, "tests", "data", "params_tiny_int8kv.json")
     pytest.param("online_w4a8", TINY_INT8KV, id="online_w4a8-int8_kv"),
 ])
 def test_offline_cli_on_cpu(quant, params):
-    cmd = [sys.executable, "-m",
-           "ppl.llm.serving_tpu_torch.tools.offline_inference",
-           "--device", "cpu", "--model-param-path", params,
-           "--tokenizer-type", "dummy", "--dtype", "float32",
-           "--kv-cache-max-tokens", "2048", "--generation-len", "6",
-           "--max-total-tokens-per-request", "256",
-           "--quant-method", quant, "--prompt", "hello", "--prompt", "world"]
-    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                         timeout=180)
-    assert out.returncode == 0, out.stdout + out.stderr
-    last = [line for line in out.stdout.splitlines() if line.strip()][-1]
-    assert last.startswith("generated "), out.stdout
+    last = run_cli(["--quant-method", quant, "--model-param-path", params])[-1]
+    assert last.startswith("generated ")
     n = int(last.split()[1])
     assert 1 <= n <= 12
     assert last.endswith("on cpu")
+
+
+def run_cli(args, gen_len=6):
+    """The offline CLI on the CPU over two prompts; its output lines."""
+    cmd = [sys.executable, "-m",
+           "ppl.llm.serving_tpu_torch.tools.offline_inference",
+           "--device", "cpu", "--model-param-path", TINY,
+           "--tokenizer-type", "dummy", "--dtype", "float32",
+           "--kv-cache-max-tokens", "2048", "--generation-len", str(gen_len),
+           "--max-total-tokens-per-request", "256",
+           "--prompt", "hello", "--prompt", "world", *args]
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, timeout=180)
+    text = out.stdout.decode("utf-8", errors="replace")
+    assert out.returncode == 0, text + out.stderr.decode(errors="replace")
+    lines = [line for line in text.splitlines() if line.strip()]
+    assert lines[-1].startswith("generated ") and lines[-1].endswith(
+        "on cpu"), text
+    return lines
+
+
+@pytest.mark.parametrize("args", [
+    pytest.param(["--multi-step", "8"], id="multi_step=8"),
+    pytest.param(["--block-tail", "on", "--speculative-blocks", "2"],
+                 id="block_tail=on"),
+])
+def test_block_options_serve_through_cli(args):
+    """Multi-step blocks (the default) and block-tail mode serve through
+    the CLI, and print what the per-step loop prints."""
+    got = run_cli(args + ["--quant-method", "online_i8i8"], gen_len=20)
+    want = run_cli(["--multi-step", "1", "--quant-method", "online_i8i8"],
+                   gen_len=20)
+    assert got[:-1] == want[:-1]
 
 
 def tiny_cfgs(**resource):
@@ -105,9 +127,7 @@ def test_kv_pool_sizing_matches_jax(dtype, kv8):
 
 
 @pytest.mark.parametrize("field,value,what", [
-    ("multi_step", 8, "multi-step"),
     ("tensor_parallel_size", 2, "tensor parallelism"),
-    ("block_tail", "on", "block_tail"),
     ("model_format", "hf", "model_format"),
 ])
 def test_resource_options_not_ported(field, value, what):
@@ -115,6 +135,32 @@ def test_resource_options_not_ported(field, value, what):
     with pytest.raises(ConfigError, match="not yet ported") as e:
         rc.validate()
     assert what in str(e.value)
+
+
+def test_block_defaults_follow_jax():
+    """The JAX package's defaults: blocks of 8 steps with per-step cache
+    writes, one speculative block, admission cadence 1; the CLI's flags
+    the same."""
+    from ppl.llm.serving_tpu.config import GeneratorConfig as JGeneratorConfig
+    from ppl.llm.serving_tpu.config import ResourceConfig as JResourceConfig
+    from ppl.llm.serving_tpu_torch.tools import common
+    rc, jrc = ResourceConfig(device="cpu"), JResourceConfig()
+    assert (rc.multi_step, rc.block_tail) == (jrc.multi_step, jrc.block_tail)
+    gc, jgc = GeneratorConfig(), JGeneratorConfig()
+    assert ((gc.speculative_blocks, gc.prefill_admission_cadence)
+            == (jgc.speculative_blocks, jgc.prefill_admission_cadence))
+    import argparse
+    p = argparse.ArgumentParser()
+    common.add_model_args(p)
+    common.add_generator_args(p)
+    args = p.parse_args(["--model-param-path", TINY, "--device", "cpu"])
+    _, rcfg, gcfg = common.build_configs(args)
+    assert (rcfg.multi_step, rcfg.block_tail) == (8, "auto")
+    assert gcfg.speculative_blocks == 1
+    rcfg.validate()
+    ResourceConfig(device="cpu", block_tail="on").validate()
+    with pytest.raises(ConfigError, match="block_tail"):
+        ResourceConfig(device="cpu", block_tail="sometimes").validate()
 
 
 def test_w4a8_and_int8_kv_accepted():
