@@ -6,13 +6,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It imports nothing of JAX or of the JAX package, and runs in phases;
-any failed phase exits non-zero and prints no result. Four paths are
-driven: TinyLlama-1.1B widths with online_i8i8 weights over a bf16 paged
-KV cache (K1, K2, K3), and LLaMA-2-7B widths with online_w4a8 weights, an
-int4 lm_head and an int8 group-8 KV cache (K1 and K2 on int8 pages, K4),
-per step (multi_step=1), in multi-step decode blocks of 8 (multi_step=8,
-each block a CUDA graph once its program key recurs), and in blocks with
-block-tail mode (K1's tail phase).
+any failed phase exits non-zero and prints no result. Six serving paths
+are driven: TinyLlama-1.1B widths with online_i8i8 weights over a bf16
+paged KV cache (K1, K2, K3); LLaMA-2-7B widths with online_w4a8 weights,
+an int4 lm_head and an int8 group-8 KV cache (K1 and K2 on int8 pages,
+K4), per step (multi_step=1), in multi-step decode blocks of 8 (each
+block a CUDA graph once its program key recurs), and in blocks with
+block-tail mode (K1's tail phase); Baichuan-13B widths with ALiBi and
+InternLM-7B widths with qkv/o biases, both online_i8i8 over int8 KV in
+the default serving configuration (K1/K2's ALiBi branches on the first,
+K3 on both). The KV-write microbench drives K5 through its own entry
+point.
 
 1. the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel);
@@ -22,23 +26,27 @@ block-tail mode (K1's tail phase).
    PyTorch library call computing the same function as a yardstick
    (never called by the port; none exists for K4, which gets torch._int_mm
    on the unpacked int8 weight as an orientation figure only); K1 also in
-   block-tail mode;
+   block-tail mode; K1/K2 with ALiBi (SDPA with the bias as its mask);
+   K5 exact;
 4. step cross-checks: 2-layer models at full width, same weights on cuda
    (kernels) and cpu (plain versions), one mixed decode+prefill step in
    float32: logits within tolerance, greedy tokens equal, written cache
-   rows within tolerance; then a 4-step decode block at 7B width (block
-   tail off and on) on cpu and on cuda, where the cuda block runs once
-   eagerly and once as a captured CUDA graph from the same cache state,
-   which must agree bit for bit;
+   rows within tolerance; then 4-step decode blocks at 7B (w4a8) and 13B
+   (ALiBi, i8i8) width, block tail off and on, on cpu and on cuda, where
+   the cuda block runs once eagerly and once as a captured CUDA graph
+   from the same cache state, which must agree bit for bit;
 5. end to end, once per path: create_engine + LLMGenerator +
    LocalConnection serving 8 greedy requests (100-400 prompt tokens, 32
    new tokens each) at full depth, after warm-up passes of the same shape
    (every program key eager once, then captured as a CUDA graph), with
-   every kernel's launch counter set to 0 just before and read just after (block paths: also the engine's
-   graph replays and device-fed or continuation dispatches); then a
+   every kernel's launch counter set to 0 just before and read just
+   after (also the engine's graph replays, the bytes its graph pools
+   hold, and its device-fed or continuation dispatches); then a
    torch.profiler pass over the same traffic for the device-time
    breakdown;
-6. the ``kernels`` JSON line, then the device JSON line last.
+6. the KV-write microbench at the 7B geometry: forms a-h timed, b-d and
+   f-h held to (a)'s cache bytes, K5's launches counted over the run;
+7. the ``kernels`` JSON line, then the device JSON line last.
 """
 
 import dataclasses
@@ -60,13 +68,32 @@ LLAMA7B = dict(hidden_dim=4096, intermediate_dim=11008, num_layers=32,
                num_heads=32, num_kv_heads=32, vocab_size=32000, cache_mode=1,
                page_size=128, dtype="bfloat16", cache_quant_bit=8,
                cache_quant_group=8)
+# Baichuan-13B widths (baichuan-inc/Baichuan-13B-Base config.json): 40
+# layers, 40 heads (MHA), ALiBi; here with int8 group-8 KV
+BAICHUAN13B = dict(hidden_dim=5120, intermediate_dim=13696, num_layers=40,
+                   num_heads=40, num_kv_heads=40, vocab_size=64000,
+                   norm_eps=1e-6, cache_mode=1, page_size=128,
+                   dtype="bfloat16", cache_quant_bit=8, cache_quant_group=8,
+                   model_type="baichuan", position_encoding="alibi")
+# InternLM-7B widths (internlm/internlm-7b config.json): qkv/o biases
+INTERNLM7B = dict(hidden_dim=4096, intermediate_dim=11008, num_layers=32,
+                  num_heads=32, num_kv_heads=32, vocab_size=103168,
+                  norm_eps=1e-6, cache_mode=1, page_size=128,
+                  dtype="bfloat16", cache_quant_bit=8, cache_quant_group=8,
+                  model_type="internlm", attn_bias=True)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_BF16 = 989e12            # dense tensor-core bf16 FLOP/s
 PEAK_INT8 = 1979e12           # dense tensor-core int8 OP/s
 PS = 128
 KVP = 64                      # page-table width of the e2e plan (8192/128)
 F32_TOL = 2e-5                # f32 attention atol and rtol, as the gpu tests
+# f32 attention atol with ALiBi (the JAX package's ALiBi tolerance): the
+# scores carry slope * k_pos, up to ~320 at 13B widths (f32 ulp ~3e-5)
+ALIBI_F32_ATOL = 2e-4
 BF16_TOL = 3e-2               # flat bf16 limit: holds the bf16 load/store path
+# bf16 limit with ALiBi: the flat one plus a rounding of the output on
+# either side (see attn_check)
+ALIBI_BF16_TOL = f"{BF16_TOL}+2^-7|ref|"
 W4_REL = 1e-5                 # K4 vs plain, of max|ref| (test_quant_w4.py)
 PERTURB_SEEDS = 3             # draws of the step check's i8i8 sensitivity
 CARD = ["?"]                  # the card's name and power limit, once read
@@ -130,18 +157,18 @@ class Timer:
                               for s, e in zip(starts, ends)]))
 
 
-def f32_excess(out, ref):
-    """Largest |out - ref| / (atol + rtol * |ref|) at atol = rtol =
-    F32_TOL; the f32 case passes at 1 or less."""
-    return float(((out - ref).abs() / (F32_TOL + F32_TOL * ref.abs())).max())
+def f32_excess(out, ref, atol=F32_TOL):
+    """Largest |out - ref| / (atol + rtol * |ref|) at rtol = F32_TOL; the
+    f32 case passes at 1 or less."""
+    return float(((out - ref).abs() / (atol + F32_TOL * ref.abs())).max())
 
 
 def report(kernel, c):
     """Log one phase-3 case as soon as it is measured."""
     lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
     f32 = ("" if "f32_max_abs_err" not in c else
-           f", f32 max|diff| {c['f32_max_abs_err']:.3g} (atol/rtol "
-           f"{c['f32_tol']})")
+           f", f32 max|diff| {c['f32_max_abs_err']:.3g} (atol "
+           f"{c['f32_tol']}, rtol {F32_TOL})")
     orient = c.get("orientation_int_mm_ms")
     if isinstance(orient, float):
         orient = f"{orient:.4f}"
@@ -197,17 +224,26 @@ def kv_bytes_per_token(spec):
     return b
 
 
-def attn_check(name, out, ref, out32, ref32):
+def attn_check(name, out, ref, out32, ref32, alibi=False):
     """bf16 within the flat limit; f32 within atol/rtol 2e-5, int8 KV
     too: the kernels dequantize int8 x bf16 scale exactly in f32, as the
     plain version does, so only the order of the softmax sums differs
     (tighter than the 1e-3/1e-2 the JAX package allows its bf16-dequant
-    Pallas path, which would let a lost key of a 300-token row pass)."""
-    err = float((out.float() - ref.float()).abs().max())
-    check(err <= BF16_TOL, f"{name}: max|diff| {err} > {BF16_TOL}")
+    Pallas path, which would let a lost key of a 300-token row pass).
+    With ALiBi the f32 atol is ``ALIBI_F32_ATOL``, and the bf16 limit
+    ``ALIBI_BF16_TOL``: a head with a steep slope attends to its last few
+    keys only, so its output is one v row, up to |4-8| at 13B widths,
+    where one bf16 ulp is 0.031."""
+    atol32 = ALIBI_F32_ATOL if alibi else F32_TOL
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    lim = BF16_TOL + (2.0 ** -7 * ref.float().abs() if alibi else 0.0)
+    check(bool((diff <= lim).all()), f"{name}: max|diff| {err} beyond "
+          f"{ALIBI_BF16_TOL if alibi else BF16_TOL}")
     err32 = float((out32 - ref32).abs().max())
-    check(f32_excess(out32, ref32) <= 1,
-          f"{name} f32: max|diff| {err32} beyond atol/rtol {F32_TOL}")
+    check(f32_excess(out32, ref32, atol32) <= 1,
+          f"{name} f32: max|diff| {err32} beyond atol {atol32} / rtol "
+          f"{F32_TOL}")
     return err, err32
 
 
@@ -307,10 +343,22 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
     return cases
 
 
+def alibi_mask(torch, mask, slopes, k_pos, dtype):
+    """The library yardstick's attention mask: ``mask`` [B, 1, Q, K]
+    itself, or with ALiBi the float mask slope * k_pos where ``mask``
+    holds and -inf elsewhere, [B, Hq, Q, K]."""
+    if slopes is None:
+        return mask
+    bias = slopes[None, :, None, None] * k_pos.float()
+    return torch.where(mask, bias, float("-inf")).to(dtype)
+
+
 def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
-               tail_lens, label):
-    """K1 in block-tail mode: B=8 rows, contexts 0-383, a side buffer of
-    J=8 rows per (layer, row, head), ``tail_len`` of them live."""
+               tail_lens, label, alibi=False):
+    """K1 on B=8 rows, contexts 0-383: in block-tail mode, with a side
+    buffer of J=8 rows per (layer, row, head), ``tail_len`` of them live,
+    or (``tail_len`` None) in plain deferred mode; with ``alibi`` the
+    model's ALiBi slopes go in."""
     hq, kvh, hd, L = geometry(widths)
     b, jt = 8, 8
     spec = kv_cache.CacheSpec(num_layers=L, num_pages=64, page_size=PS,
@@ -336,13 +384,15 @@ def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
     tkv = rows.reshape(L, b, jt, kvh, spec.row_lanes).permute(
         0, 1, 3, 2, 4).contiguous()
     del k, v, rows
+    slopes = attn_ops.alibi_slopes(hq).to(dev) if alibi else None
     rng = np.random.default_rng(SEED + 7)
     layer = L - 1
     cases = []
     for tl in tail_lens:
+        t = tl or 0                               # live tail rows
         ctx = rng.integers(0, 384, b).astype(np.int32)
         ctx[rng.choice(b, 1)] = 0                     # a padding row
-        n_cached = np.maximum(ctx - 1 - tl, 0)
+        n_cached = np.maximum(ctx - 1 - t, 0)
         pt = np.full((b, KVP), spec.trash_page, np.int32)
         for r in range(b):
             n_pages = -(-int(n_cached[r]) // PS)
@@ -350,7 +400,7 @@ def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
                                          replace=False)
         ctx_t = torch.from_numpy(ctx).to(dev)
         pt_t = torch.from_numpy(pt).to(dev)
-        tlen = torch.full((1,), tl, dtype=torch.int32, device=dev)
+        tlen = torch.full((1,), t, dtype=torch.int32, device=dev)
         q = torch.randn((b, hq, hd), generator=g, device=dev,
                         dtype=torch.bfloat16)
         fk = torch.randn((b, kvh, hd), generator=g, device=dev,
@@ -358,15 +408,21 @@ def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
         fv = torch.randn((b, kvh, hd), generator=g, device=dev,
                          dtype=torch.bfloat16)
 
+        def tail_kw(tkv):
+            return ({} if tl is None else
+                    dict(tail_kv=tkv, tail_scale=tscale, tail_len=tlen))
+
         def kern(q=q, cache=cache, fk=fk, fv=fv, tkv=tkv, spec=spec):
             return pk.paged_decode_attention(
                 q, cache, scale, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
-                fresh_v=fv, tail_kv=tkv, tail_scale=tscale, tail_len=tlen)
+                fresh_v=fv, alibi=slopes, **tail_kw(tkv))
 
         def plain(q=q, cache=cache, fk=fk, fv=fv, tkv=tkv, spec=spec):
-            return attn_ops.decode_attention_ref(
+            out = attn_ops.decode_attention_ref(
                 q, cache, scale, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
-                fresh_v=fv, tail_kv=tkv, tail_scale=tscale, tail_len=tlen)
+                fresh_v=fv, alibi=slopes, **tail_kw(tkv))
+            return torch.where((ctx_t > 0)[:, None, None], out,
+                               torch.zeros((), dtype=out.dtype, device=dev))
 
         out = kern()
         ref = plain()
@@ -376,28 +432,37 @@ def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
             f32.update(cache=cache.float(), tkv=tkv.float())
         out32, ref32 = kern(**f32), plain(**f32)
         torch.cuda.synchronize()
-        err, err32 = attn_check(f"K1 tail {label} tail_len={tl}", out, ref,
-                                out32, ref32)
+        mode = "deferred" if tl is None else f"tail_len={tl}"
+        err, err32 = attn_check(f"K1 {label} {mode}", out, ref, out32, ref32,
+                                alibi)
         del f32, out32, ref32
         # yardstick: SDPA over the cache gathered (and dequantized)
-        # beforehand, the tail rows and the self-term, concatenated
+        # beforehand, the live tail rows and the self-term, concatenated
         lmax = max(int(n_cached.max()), 1)
         k_c, v_c = kv_cache.gather_pages(cache, scale,
                                          pt_t[:, :-(-lmax // PS)], spec,
                                          torch.bfloat16, layer)
-        k_t, v_t = attn_ops._tail_rows(
-            tkv[layer], None if tscale is None else tscale[layer], spec,
-            torch.bfloat16)
-        k_all = torch.cat([k_c[:, :lmax], k_t, fk[:, None]], 1).permute(
-            0, 2, 1, 3).contiguous()
-        v_all = torch.cat([v_c[:, :lmax], v_t, fv[:, None]], 1).permute(
-            0, 2, 1, 3).contiguous()
-        mask = torch.cat([
-            torch.arange(lmax, device=dev)[None, :]
-            < torch.from_numpy(n_cached).to(dev)[:, None],
-            (torch.arange(jt, device=dev) < tl)[None, :].expand(b, jt),
-            torch.ones((b, 1), dtype=torch.bool, device=dev)], 1)
-        mask = mask[:, None, None, :]
+        n_c_t = torch.from_numpy(n_cached).to(dev)[:, None]
+        ks, vs = [k_c[:, :lmax]], [v_c[:, :lmax]]
+        mask = [torch.arange(lmax, device=dev)[None, :] < n_c_t]
+        k_pos = [torch.arange(lmax, device=dev)[None, :].expand(b, lmax)]
+        if tl is not None:
+            k_t, v_t = attn_ops._tail_rows(
+                tkv[layer], None if tscale is None else tscale[layer], spec,
+                torch.bfloat16)
+            ks.append(k_t)
+            vs.append(v_t)
+            mask.append((torch.arange(jt, device=dev) < tl)[None, :]
+                        .expand(b, jt))
+            k_pos.append(n_c_t + torch.arange(jt, device=dev)[None, :])
+        k_all = torch.cat(ks + [fk[:, None]], 1).permute(0, 2, 1, 3)
+        v_all = torch.cat(vs + [fv[:, None]], 1).permute(0, 2, 1, 3)
+        k_all, v_all = k_all.contiguous(), v_all.contiguous()
+        mask = torch.cat(mask + [torch.ones((b, 1), dtype=torch.bool,
+                                            device=dev)], 1)
+        k_pos = torch.cat(k_pos + [n_c_t + t], 1)
+        mask = alibi_mask(torch, mask[:, None, None, :], slopes,
+                          k_pos[:, None, None, :], torch.bfloat16)
         q4 = q[:, :, None, :]
 
         def lib():
@@ -409,29 +474,35 @@ def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
         n_live = int(live.sum())
         n_c = int(n_cached[live].sum())
         pages = int(sum(-(-int(n) // PS) for n in n_cached[live]))
+        keys = n_c + n_live * (min(t, jt) + 1)
         # q and fresh k/v of the live rows, every output row, the cached
         # rows walked (and their scales) with their page-table entries,
-        # this layer's live tail rows (and scale rows), context_len and
-        # tail_len
+        # this layer's live tail rows (and scale rows), context_len,
+        # tail_len and (ALiBi) the slopes
         bytes_moved = ((n_live + b) * hq * hd * 2
                        + n_live * kvh * 2 * hd * 2
-                       + (n_c + n_live * min(tl, jt))
+                       + (n_c + n_live * min(t, jt))
                        * kv_bytes_per_token(spec)
-                       + pages * 4 + b * 4 + 4)
-        ops = 4 * hq * hd * (n_c + n_live * (min(tl, jt) + 1))
+                       + pages * 4 + b * 4 + (4 if tl is not None else 0)
+                       + (hq * 4 if alibi else 0))
+        # a q.k and a p.v product per key and head, and (ALiBi) one
+        # multiply-add of the bias
+        ops = (4 * hd + (2 if alibi else 0)) * hq * keys
         bms, by = bound(bytes_moved, ops, PEAK_BF16)
+        case = (f"{label} deferred B={b}" if tl is None else
+                f"{label} tail B={b} J={jt} tail_len={tl}")
         cases.append(report("paged_decode_attention", dict(
-            case=f"{label} tail B={b} J={jt} tail_len={tl} bf16 ctx "
-            f"{int(ctx.min())}-{int(ctx.max())}", path=label,
-            max_abs_err=err, tol=BF16_TOL, f32_max_abs_err=err32,
-            f32_tol=F32_TOL, ms=timer.ms(kern),
+            case=f"{case} bf16 ctx {int(ctx.min())}-{int(ctx.max())}",
+            path=label, max_abs_err=err,
+            tol=ALIBI_BF16_TOL if alibi else BF16_TOL, f32_max_abs_err=err32,
+            f32_tol=ALIBI_F32_ATOL if alibi else F32_TOL, ms=timer.ms(kern),
             plain_ms=timer.ms(plain, iters=5),
             library_ms=timer.ms(lib, iters=5), bound_ms=bms, bound_by=by)))
     return cases
 
 
 def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
-                  quantized, which, label):
+                  quantized, which, label, alibi=False):
     hq, kvh, hd, L = geometry(widths)
     spec = kv_cache.CacheSpec(num_layers=L, num_pages=200 if not quantized
                               else 64, page_size=PS, num_kv_heads=kvh,
@@ -441,6 +512,7 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     cache, scale = random_cache(torch, kv_cache, spec, g)
+    slopes = attn_ops.alibi_slopes(hq).to(dev) if alibi else None
     rng = np.random.default_rng(SEED + 1)
     # (label, Bp, Qp, start, new_len): the e2e prefill wave; a prefix hit
     # of 2 pages; the full-hit replay row (start = hit - 1, new_len = 1)
@@ -480,12 +552,13 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
         def kern(q=q, cache=cache, fresh=fresh, spec=spec):
             return pk.paged_prefill_attention(
                 q, cache, scale, pt_t, st, nl, spec, layer=layer,
-                fresh_kv=fresh, fresh_scale=fscale)
+                fresh_kv=fresh, fresh_scale=fscale, alibi=slopes)
 
         def plain(q=q, cache=cache, fresh=fresh, spec=spec):
             return attn_ops.prefill_attention_ref(
                 q, cache, scale, pt_t, st, nl, spec, layer=layer,
-                fresh_k=fk.to(q.dtype), fresh_v=fv.to(q.dtype))
+                fresh_k=fk.to(q.dtype), fresh_v=fv.to(q.dtype),
+                alibi=slopes)
 
         out = kern()
         ref = plain()
@@ -496,7 +569,7 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
         out32, ref32 = kern(**f32), plain(**f32)
         torch.cuda.synchronize()
         err, err32 = attn_check(f"K2 prefill {label} {plabel}", out, ref,
-                                out32, ref32)
+                                out32, ref32, alibi)
         del f32, out32, ref32
         # yardstick: SDPA over the dense prefix + fresh K/V with the
         # prefill mask
@@ -515,7 +588,8 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
         kv_len = k_all.shape[2]
         mask = (torch.arange(kv_len, device=dev)[None, None, :]
                 <= (s0 + torch.arange(qp, device=dev))[None, :, None])
-        mask = mask[:, None]
+        mask = alibi_mask(torch, mask[:, None], slopes,
+                          torch.arange(kv_len, device=dev), torch.bfloat16)
 
         def lib():
             return F.scaled_dot_product_attention(q4, k_all, v_all,
@@ -531,26 +605,29 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
         # q and fresh k|v (and scales) of the valid rows only (a row past
         # new_len writes zeros and is never attended), every output row,
         # the cached prefix and the page-table entries that hold it,
-        # start, new_len
+        # start, new_len, (ALiBi) the slopes
         bytes_moved = ((valid_q + bp * qp) * hq * hd * 2
                        + (valid_q + cached_read) * kv_bytes_per_token(spec)
-                       + pages * 4 + 2 * bp * 4)
-        ops = 4 * hq * hd * keys
+                       + pages * 4 + 2 * bp * 4 + (hq * 4 if alibi else 0))
+        ops = (4 * hd + (2 if alibi else 0)) * hq * keys
         bms, by = bound(bytes_moved, ops, PEAK_BF16)
         cases.append(report("paged_prefill_attention", dict(
                           case=f"{label} {plabel} Bp={bp} Qp={qp} new_len "
                           f"{int(new_len.min())}-{int(new_len.max())} "
                           f"({valid_q} rows) bf16", path=label,
-                          max_abs_err=err, tol=BF16_TOL,
-                          f32_max_abs_err=err32, f32_tol=F32_TOL,
+                          max_abs_err=err,
+                          tol=ALIBI_BF16_TOL if alibi else BF16_TOL,
+                          f32_max_abs_err=err32,
+                          f32_tol=ALIBI_F32_ATOL if alibi else F32_TOL,
                           ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
                           library_ms=timer.ms(lib, iters=5),
                           bound_ms=bms, bound_by=by)))
     return cases
 
 
-def i8i8_cases(torch, timer, qk, quant_ops):
-    cfg = TINY
+def i8i8_cases(torch, timer, qk, quant_ops, cfg, label):
+    """K3 at the widths of ``cfg``: each weight at a decode (T=8) and a
+    prefill (T=1024) size, bf16 out, exact up to one bf16 rounding."""
     d, inter = cfg["hidden_dim"], cfg["intermediate_dim"]
     hq, kvh = cfg["num_heads"], cfg["num_kv_heads"]
     hd = d // hq
@@ -590,7 +667,8 @@ def i8i8_cases(torch, timer, qk, quant_ops):
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             tol = float(ref.float().abs().max()) * 2.0 ** -8
-            check(err <= tol, f"K3 {name} T={t}: max|diff| {err} > {tol}")
+            check(err <= tol,
+                  f"K3 {label} {name} T={t}: max|diff| {err} > {tol}")
             xq, _ = quant_ops.quantize_activation(x)
             rows = max(t, 32)   # _int_mm needs more than 16 rows
             xq_lib = torch.zeros((rows, k_dim), dtype=torch.int8,
@@ -613,11 +691,50 @@ def i8i8_cases(torch, timer, qk, quant_ops):
             ops = 2 * t * k_dim * c * n
             bms, by = bound(bytes_moved, ops, PEAK_INT8)
             cases.append(report("i8i8_matmul", dict(
-                case=f"{name} T={t} D={k_dim} N={c}x{n} bf16{lib_note}",
+                case=f"{label} {name} T={t} D={k_dim} N={c}x{n} bf16"
+                f"{lib_note}", path=label,
                 max_abs_err=err, tol=tol, ms=timer.ms(kern),
                 plain_ms=timer.ms(plain, iters=5), library_ms=lib_ms,
                 bound_ms=bms, bound_by=by)))
+        del wq, ws, w2, w2_cm
+        torch.cuda.empty_cache()
     return cases
+
+
+def page_read_cases(torch, timer, cache_read):
+    """K5 at the microbench's geometry (LLaMA-2-7B int8 cache, 128
+    pages): the page read against its plain version, exact."""
+    from ppl.llm.serving_tpu_torch.tools import microbench_scatter_7b as mb
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    shape = (mb.KVH, mb.L * (mb.NPAGES + 1) * mb.PS, mb.R)
+    cache = torch.randint(-128, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+    rows = 8
+
+    def kern():
+        return cache_read.page_read(cache, rows=rows, page_size=mb.PS)
+
+    def plain():
+        return cache_read.page_read_ref(cache, rows)
+
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), "K5 page read differs from its plain "
+          f"version: max|diff| {float((out - ref).abs().max())}")
+    # every head's page read once, the f32 rows written once
+    bytes_moved = mb.KVH * mb.PS * mb.R + mb.KVH * rows * mb.R * 4
+    bms, by = bound(bytes_moved, 0, PEAK_BF16)
+    case = report("page_read", dict(
+        case=f"microbench 7B int8 cache {tuple(shape)} page {mb.PS} rows "
+        f"-> f32 [{mb.KVH}, {rows}, {mb.R}]", path="microbench",
+        max_abs_err=0.0, tol="exact", ms=timer.ms(kern),
+        plain_ms=timer.ms(plain, iters=5),
+        library_ms=timer.ms(lambda: cache[:, :rows].float(), iters=5),
+        bound_ms=bms, bound_by=by))
+    del cache
+    torch.cuda.empty_cache()
+    return [case]
 
 
 def w4a8_cases(torch, timer, qk, quant_ops):
@@ -856,7 +973,9 @@ def step_cross_check(torch, port, quant_method, widths):
     err = float(np.abs(lg - lc).max())
     scale = float(np.abs(lc).max())
     tol = 3 * max(sens, default=0.0) + 1e-4 * scale
-    label = quant_method + (" + int8 KV" if spec.quantized else "")
+    label = (quant_method + (" + int8 KV" if spec.quantized else "")
+             + (" + ALiBi" if cfg.position_encoding == "alibi" else "")
+             + (" + qkv/o bias" if cfg.attn_bias else ""))
     check(err <= tol, f"step {label} logits: max|diff| {err} > {tol}")
     v_gpu = dequantized(c_gpu.cpu(), clone(s_gpu), spec)
     cache_err = float((v_gpu - v_cpu)[:, keep].abs().max())
@@ -877,10 +996,10 @@ def step_cross_check(torch, port, quant_method, widths):
                 rows=int(live.sum()))
 
 
-def block_cross_check(torch, port, block_tail, step):
-    """A 4-step decode block at LLaMA-2-7B width, 2 layers, f32, w4a8 +
-    int4 lm_head + int8 KV: 8 rows (two padding, one crossing a page
-    mid-block). The block runs on cpu (plain versions) and on cuda through
+def block_cross_check(torch, port, block_tail, step, widths, quant_method):
+    """A 4-step decode block at ``widths`` (2 layers, f32, int8 KV) with
+    ``quant_method`` weights (w4a8 with an int4 lm_head): 8 rows (two
+    padding, one crossing a page mid-block). The block runs on cpu (plain versions) and on cuda through
     the engine's runner: its first call runs the block eagerly, its second
     captures it as a CUDA graph and replays it, from the same cache state.
     Eager and replay must agree bit for bit on the live rows' tokens and
@@ -889,10 +1008,11 @@ def block_cross_check(torch, port, block_tail, step):
     trash page in any order, and in per-step mode they read it back, so
     their (discarded) outputs vary from run to run, eager or replayed
     alike. Against the cpu: greedy tokens equal on the live
-    rows, logprobs within twice the w4a8 step check's logit tolerance and
-    the written cache rows (dequantized) within its cache tolerance."""
+    rows, logprobs within twice the same widths' step check's logit
+    tolerance (``step``) and the written cache rows (dequantized) within
+    its cache tolerance."""
     llama, kv = port["llama"], port["kv"]
-    cfg = port["ModelConfig"](**dict(LLAMA7B, num_layers=2,
+    cfg = port["ModelConfig"](**dict(widths, num_layers=2,
                                      dtype="float32"))
     npages, n_steps, bd, kvp = 24, 4, 8, 4
     spec = kv.CacheSpec(num_layers=2, num_pages=npages, page_size=PS,
@@ -901,7 +1021,7 @@ def block_cross_check(torch, port, block_tail, step):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     p_gpu = llama.quantize_model_params(
         llama.init_params(cfg, gen, dtype=torch.float32, device="cuda"),
-        "online_w4a8", quantize_lm_head=True)
+        quant_method, quantize_lm_head=quant_method == "online_w4a8")
     p_cpu = {k: v.cpu() for k, v in p_gpu.items() if k != "layers"}
     p_cpu["layers"] = [{k: v.cpu() for k, v in lp.items()}
                        for lp in p_gpu["layers"]]
@@ -939,7 +1059,7 @@ def block_cross_check(torch, port, block_tail, step):
 
     block = llama.make_multi_step_fn(cfg, spec, n_steps,
                                      block_tail=block_tail,
-                                     quant_method="online_w4a8",
+                                     quant_method=quant_method,
                                      greedy_only=True)
     c_cpu, s_cpu = cache0.clone(), scale0.clone()
     t_c, l_c = block(p_cpu, c_cpu, s_cpu,
@@ -994,29 +1114,66 @@ def block_cross_check(torch, port, block_tail, step):
                 graph_launches=runner.launches)
 
 
+# ---------------------------------------------------------- the microbench
+
+def microbench(torch, kernels, name_limit):
+    """The KV-write microbench through its entry point at the LLaMA-2-7B
+    geometry (4.3 GB int8 cache): forms a-h timed, b-d held to (a)'s
+    cache bytes and f-h to 16 writes of (a); K5's launches counted over
+    the run, the counts set to 0 just before it."""
+    from ppl.llm.serving_tpu_torch.tools import microbench_scatter_7b as mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    out = mb.run(device="cuda", log=lambda line: log(f"[microbench] {line}"))
+    counts = kernels.launch_counts()
+    log(f"[microbench] on {name_limit}; launch counts over the run: "
+        f"{counts}")
+    differ = sorted(k for k, same in out["same"].items() if not same)
+    check(not differ, f"microbench: forms {differ} leave other cache bytes "
+          "than (a) does")
+    check(counts["page_read"] > 0, "microbench: K5 was never launched")
+    torch.cuda.empty_cache()
+    return dict(out, path="microbench", launches=counts)
+
+
 # --------------------------------------------------------------- end to end
 
 # the paths phase 5 drives: (label, widths, ResourceConfig fields,
 # kernels that must launch, kernels that must not). The 7B block paths
-# serve the 7B path's workload and weights in decode blocks of 8.
+# serve the 7B path's workload and weights in decode blocks of 8. The
+# model-family paths run the default serving configuration (blocks of
+# 8, block_tail "auto", one speculative block). No serving path reads
+# the cache with K5, and only the ALiBi path launches K1/K2's ALiBi
+# branches.
 W4_7B = dict(quant_method="online_w4a8", quantize_lm_head=True,
              kv_cache_max_tokens=16384)
-W4_LAUNCHED = ("paged_decode_attention", "paged_prefill_attention",
-               "w4a8_matmul")
+I8_16K = dict(quant_method="online_i8i8", kv_cache_max_tokens=16384)
+ATTN = ("paged_decode_attention", "paged_prefill_attention")
+W4_LAUNCHED = ATTN + ("w4a8_matmul",)
+ALIBI = ("paged_decode_attention_alibi", "paged_prefill_attention_alibi")
+NEVER = ALIBI + ("page_read",)
 PATHS = [
     ("tinyllama i8i8", TINY,
      dict(quant_method="online_i8i8", kv_cache_max_tokens=32768,
           multi_step=1),
-     ("paged_decode_attention", "paged_prefill_attention", "i8i8_matmul"),
-     ("w4a8_matmul", "paged_decode_attention_tail")),
+     ATTN + ("i8i8_matmul",),
+     ("w4a8_matmul", "paged_decode_attention_tail") + NEVER),
     ("llama2-7b w4a8 int8-kv", LLAMA7B, dict(W4_7B, multi_step=1),
-     W4_LAUNCHED, ("i8i8_matmul", "paged_decode_attention_tail")),
+     W4_LAUNCHED, ("i8i8_matmul", "paged_decode_attention_tail") + NEVER),
     ("llama2-7b w4a8 int8-kv blocks", LLAMA7B,
      dict(W4_7B, multi_step=8, block_tail="auto"), W4_LAUNCHED,
-     ("i8i8_matmul", "paged_decode_attention_tail")),
+     ("i8i8_matmul", "paged_decode_attention_tail") + NEVER),
     ("llama2-7b w4a8 int8-kv block-tail", LLAMA7B,
      dict(W4_7B, multi_step=8, block_tail="on"),
-     W4_LAUNCHED + ("paged_decode_attention_tail",), ("i8i8_matmul",)),
+     W4_LAUNCHED + ("paged_decode_attention_tail",),
+     ("i8i8_matmul",) + NEVER),
+    ("baichuan-13b i8i8 int8-kv alibi", BAICHUAN13B, I8_16K,
+     ATTN + ("i8i8_matmul",) + ALIBI,
+     ("w4a8_matmul", "paged_decode_attention_tail", "page_read")),
+    ("internlm-7b i8i8 int8-kv bias", INTERNLM7B, I8_16K,
+     ATTN + ("i8i8_matmul",),
+     ("w4a8_matmul", "paged_decode_attention_tail") + NEVER),
 ]
 
 
@@ -1098,10 +1255,12 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         log(f"[e2e {label}] launch counts over the main-path run: {counts}")
         peak, held = (torch.cuda.max_memory_allocated() >> 20,
                       torch.cuda.memory_reserved() >> 20)
+        pools = graphs["pool_bytes"] >> 20
         log(f"[e2e {label}] dispatches {dispatches}; CUDA graphs "
-            f"{graphs['graphs']} captured, {replays} replays in the run; "
-            f"device memory while serving: peak allocated {peak} MiB, "
-            f"held by the allocator (graph pools included) {held} MiB")
+            f"{graphs['graphs']} captured, {replays} replays in the run, "
+            f"their private pools {pools} MiB in all; device memory while "
+            f"serving: peak allocated {peak} MiB, held by the allocator "
+            f"(graph pools included) {held} MiB")
         if engine.multi_step_block > 1:
             check(dispatches["fed"] + dispatches["continuation"] > 0,
                   f"e2e {label}: no device-fed or continuation dispatch")
@@ -1131,8 +1290,12 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         # device-time breakdown of the same traffic under torch.profiler
         acts = torch.profiler.ProfilerActivity
         with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
-            p_elapsed, _ = serve(8, 32, 100)
+            # the wall runs until the device drains: a speculative block
+            # still in flight after the last token is device time too
+            t_p = time.perf_counter()
+            serve(8, 32, 100)
             torch.cuda.synchronize()
+            p_elapsed = time.perf_counter() - t_p
         rows = []
         for ev in prof.key_averages():
             if getattr(ev, "device_type", None) != \
@@ -1157,7 +1320,8 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
                     setup_s=setup_s, profiled_wall_ms=p_elapsed * 1e3,
                     device_busy_ms=busy_ms, dispatches=dispatches,
                     graphs=graphs["graphs"], graph_replays=replays,
-                    serving_peak_mib=peak, held_mib=held,
+                    graph_pool_mib=pools, serving_peak_mib=peak,
+                    held_mib=held,
                     tokens={r.id: list(conn.tokens[r.id]) for r in reqs})
     finally:
         gen.shutdown()
@@ -1198,6 +1362,7 @@ def main():
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from ppl.llm.serving_tpu_torch.ops.kernels import cache_read
     from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention
     from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul
     port = dict(config=port_config, kernels=kernels, llama=llama,
@@ -1246,19 +1411,39 @@ def main():
                 torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
                 quantized, tail_lens, label)
             torch.cuda.empty_cache()
-        results["i8i8_matmul"] = i8i8_cases(torch, timer, quant_matmul,
-                                            quant_ops)
+        # the ALiBi branches: Baichuan-13B widths over int8 pages (G=1),
+        # TinyLlama's over bf16 pages (G=8) with 32 heads' slopes
+        for widths, quantized, label, tail_lens, which in (
+                (BAICHUAN13B, True, "baichuan-13b int8-kv alibi",
+                 (None, 1, 7), 2),
+                (TINY, False, "tinyllama alibi", (None,), 1)):
+            results["paged_decode_attention"] += tail_cases(
+                torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
+                quantized, tail_lens, label, alibi=True)
+            results["paged_prefill_attention"] += prefill_cases(
+                torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
+                quantized, which, label, alibi=True)
+            torch.cuda.empty_cache()
+        for widths, label in ((TINY, "tinyllama"),
+                              (BAICHUAN13B, "baichuan-13b")):
+            results["i8i8_matmul"] += i8i8_cases(torch, timer, quant_matmul,
+                                                 quant_ops, widths, label)
         results["w4a8_matmul"] = w4a8_cases(torch, timer, quant_matmul,
                                             quant_ops)
+        results["page_read"] = page_read_cases(torch, timer, cache_read)
         del timer
         torch.cuda.empty_cache()
         log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         steps = {}
-        for quant, widths in (("none", TINY), ("online_i8i8", TINY),
-                              ("online_w4a8", LLAMA7B)):
-            sx = steps[quant] = step_cross_check(torch, port, quant, widths)
+        for key, quant, widths in (
+                ("tinyllama none", "none", TINY),
+                ("tinyllama i8i8", "online_i8i8", TINY),
+                ("llama2-7b w4a8", "online_w4a8", LLAMA7B),
+                ("baichuan-13b i8i8", "online_i8i8", BAICHUAN13B),
+                ("internlm-7b i8i8", "online_i8i8", INTERNLM7B)):
+            sx = steps[key] = step_cross_check(torch, port, quant, widths)
             sens = ("" if not sx["sensitivity"] else
                     "; 1e-6 attention perturbations move them "
                     + ", ".join(f"{v:.3g}" for v in sx["sensitivity"])
@@ -1273,10 +1458,15 @@ def main():
                 f"(equal on {sx['rows_decided']}/{sx['rows']} rows whose "
                 f"top-2 margin exceeds twice the logit error)")
             torch.cuda.empty_cache()
-        for block_tail in ("auto", "on"):
-            bx = block_cross_check(torch, port, block_tail,
-                                   steps["online_w4a8"])
-            log(f"[block] 2-layer D=4096 f32 w4a8 + int8 KV, 4-step block, "
+        for key, quant, widths, block_tail in (
+                ("llama2-7b w4a8", "online_w4a8", LLAMA7B, "auto"),
+                ("llama2-7b w4a8", "online_w4a8", LLAMA7B, "on"),
+                ("baichuan-13b i8i8", "online_i8i8", BAICHUAN13B, "auto"),
+                ("baichuan-13b i8i8", "online_i8i8", BAICHUAN13B, "on")):
+            bx = block_cross_check(torch, port, block_tail, steps[key],
+                                   widths, quant)
+            log(f"[block] 2-layer D={widths['hidden_dim']} f32 "
+                f"{steps[key]['quant']}, 4-step block, "
                 f"block_tail={block_tail}: CUDA graph replay equals the "
                 f"eager block bit for bit (launches per replay "
                 f"{ {k: n for k, n in bx['graph_launches'].items() if n} }); "
@@ -1285,7 +1475,7 @@ def main():
                 f"{bx['logprob_max_abs_err']:.3g}, written cache rows "
                 f"({bx['rows_written']}) max|diff| "
                 f"{bx['cache_max_abs_err']:.3g} (tol "
-                f"{steps['online_w4a8']['cache_tol']:.3g})")
+                f"{steps[key]['cache_tol']:.3g})")
             torch.cuda.empty_cache()
         log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
 
@@ -1304,20 +1494,26 @@ def main():
             log(f"[e2e {label}] {same} of {len(base)} requests' 32 tokens "
                 f"equal the multi_step=1 path's (reported, not gated: bf16 "
                 f"sums may run in another order)")
+        t0 = time.perf_counter()
+        e2e["microbench"] = microbench(torch, kernels, name_limit)
+        log(f"[phase 6 microbench] {time.perf_counter() - t0:.1f} s")
     except PhaseError as e:
         log(f"FAIL: {e}")
         return 1
 
     # per kernel: the representative case (the first whose name starts so:
     # this kernel's heaviest use on the newest path that runs it, bf16 out)
-    # and the path whose run its launch count is read from
+    # and the path whose run its launch count is read from (K5: the
+    # microbench, its entry point)
     main_case = {
-        "paged_decode_attention": ("llama2-7b int8-kv B=8",
-                                   "llama2-7b w4a8 int8-kv"),
-        "paged_prefill_attention": ("llama2-7b int8-kv start=0",
-                                    "llama2-7b w4a8 int8-kv"),
-        "i8i8_matmul": ("gate|up T=8 ", "tinyllama i8i8"),
+        "paged_decode_attention": ("baichuan-13b int8-kv alibi deferred B=8",
+                                   "baichuan-13b i8i8 int8-kv alibi"),
+        "paged_prefill_attention": ("baichuan-13b int8-kv alibi start=0",
+                                    "baichuan-13b i8i8 int8-kv alibi"),
+        "i8i8_matmul": ("baichuan-13b gate|up T=8 ",
+                        "baichuan-13b i8i8 int8-kv alibi"),
         "w4a8_matmul": ("gate|up T=8 ", "llama2-7b w4a8 int8-kv"),
+        "page_read": ("microbench ", "microbench"),
     }
     meta = {
         "paged_decode_attention": (
@@ -1332,7 +1528,15 @@ def main():
         "w4a8_matmul": (
             "ppl/llm/serving_tpu_torch/csrc/quant_matmul.cu",
             "ppl/llm/serving_tpu/ops/pallas/quant_matmul.py:172"),
+        "page_read": (
+            "ppl/llm/serving_tpu_torch/csrc/cache_read.cu",
+            "ppl/llm/serving_tpu/tools/microbench_scatter_7b.py:133"),
     }
+    # launch counts kept apart: K1's block-tail launches, K1's and K2's
+    # ALiBi launches
+    apart = {"paged_decode_attention": ("paged_decode_attention_tail",
+                                        "paged_decode_attention_alibi"),
+             "paged_prefill_attention": ("paged_prefill_attention_alibi",)}
     entries = []
     for name, cases in results.items():
         prefix, path = main_case[name]
@@ -1342,14 +1546,13 @@ def main():
             name=name, route="cuda", source=src, replaces=rep,
             launches=e2e[path]["launches"][name],
             launches_by_path={k: v["launches"][name] for k, v in e2e.items()},
-            **({"tail_launches_by_path": {
-                k: v["launches"]["paged_decode_attention_tail"]
-                for k, v in e2e.items()}}
-               if name == "paged_decode_attention" else {}),
+            **{f"{counter}_by_path": {k: v["launches"][counter]
+                                      for k, v in e2e.items()}
+               for counter in apart.get(name, ())},
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
-            case=c["case"], cases=cases))
+            case=c["case"], n_cases=len(cases)))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,7 +66,9 @@ class ModelConfig:
     model_type: str = "llama"
     dtype: str = "bfloat16"
     tie_word_embeddings: bool = False
+    # qkv/o projection biases (InternLM-7B)
     attn_bias: bool = False
+    # "rope" | "alibi" (Baichuan-13B)
     position_encoding: str = "rope"
 
     @property
@@ -92,10 +94,6 @@ class ModelConfig:
         if self.position_encoding not in ("rope", "alibi"):
             raise ConfigError(
                 f"unknown position_encoding {self.position_encoding}")
-        if self.position_encoding == "alibi":
-            raise not_ported("ALiBi (position_encoding='alibi')")
-        if self.attn_bias:
-            raise not_ported("qkv/o projection biases (attn_bias)")
         if self.dtype not in ("bfloat16", "float32"):
             raise ConfigError(f"unsupported dtype {self.dtype}")
 

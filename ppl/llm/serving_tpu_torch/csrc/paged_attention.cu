@@ -6,8 +6,7 @@
 //   K2  ppl/llm/serving_tpu/ops/pallas/paged_attention.py:paged_prefill_attention
 //       (body _prefill_kernel)
 // in their deferred-append form, over a bf16/f32 cache or an int8 cache
-// with group-8 scales; K1 also in block-tail mode (no ALiBi: a later
-// slice).
+// with group-8 scales, with or without ALiBi; K1 also in block-tail mode.
 //
 // Cache layout (ops/kv_cache.py): [KVH, L*num_slots, 2*shd] packed rows,
 // k in lanes [0, hd), v in lanes [shd, shd+hd); layer l's slot s is row
@@ -54,6 +53,16 @@
 //   Scores use a 4x4 register tile per thread; the mask is
 //   k_pos <= row_pos & row_valid & k_pos < ctx. An inactive q block
 //   writes zeros.
+// - ALiBi (slopes f32 [Hq], or null for none): the Pallas kernels'
+//   shift-invariant form, score += slope * k_pos after the 1/sqrt(hd)
+//   scale and before the mask, q head h*G+g taking slopes[h*G+g]. K1's
+//   positions: a page chunk's token t sits at c0 + t; the tail chunk,
+//   loaded as a fresh slab from position 0, sits after the n cached
+//   tokens, at n + t; the self-term at n + tail_len, tail_len unclamped
+//   (the current token's position, ctx - 1, whenever ctx > tail_len).
+//   K2's key at c0 + t. The bias is a separate f32 multiply and add
+//   (__fmul_rn/__fadd_rn, never contracted into an fma), as the plain
+//   version computes it.
 // No tensor cores, TMA or cp.async pipelining yet: those are later PRs.
 
 #include <cuda_runtime.h>
@@ -119,6 +128,11 @@ struct ScaleRows {
   int lanes;
   int head_off;
 };
+
+// score + slope * k_pos, rounded as the plain version rounds it
+__device__ __forceinline__ float alibi_add(float s, float slope, int k_pos) {
+  return __fadd_rn(s, __fmul_rn(slope, (float)k_pos));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -202,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     int Hq, int KVH, int hd, int shd, int P, int ps, long long LS,
     long long lbase, int CH, float sm_scale, const TC* __restrict__ tkv,
     const __nv_bfloat16* __restrict__ tscale, const int* __restrict__ tlen,
-    int J, int layer) {
+    int J, int layer, const float* __restrict__ slopes) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int G = Hq / KVH;
@@ -228,6 +242,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int tl = tkv != nullptr ? max(0, min(tlen[0], J)) : 0;
   // cached tokens: the current one is the self-term, the tail rows precede it
   const int n = max(ctx_t - 1 - (tkv != nullptr ? tlen[0] : 0), 0);
+  // this CTA's G slopes (ALiBi), or null
+  const float* sl = slopes != nullptr ? slopes + (size_t)h * G : nullptr;
   const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * hd;
   for (int i = tid; i < GH; i += nt) q_s[i] = to_f(qb[i]) * sm_scale;
   for (int g = tid; g < G; g += nt) { m_s[g] = kNegInf; l_s[g] = 0.f; }
@@ -249,6 +265,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const bool tail = ci == n_page_chunks;
     const int c0 = tail ? 0 : ci * CH;
     const int cn = tail ? tl : min(CH, n - c0);
+    const int kpos0 = tail ? n : c0;  // key position of the chunk's row 0
     load_kv_chunk<TC>(kv_s, CH, c0, cn, hd, shd, cache_h, cs, pt, P, ps,
                       lbase, tail ? trow : nullptr, ts, 0);
     __syncthreads();
@@ -260,6 +277,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         const float* qr = q_s + g * hd;
         const float* kr = kv_s + t * kvs;
         for (int d = 0; d < hd; ++d) s = fmaf(qr[d], kr[d], s);
+        if (sl != nullptr) s = alibi_add(s, sl[g], kpos0 + t);
       }
       s_s[e] = s;
     }
@@ -308,6 +326,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float s = 0.f;
     for (int d = lane; d < hd; d += 32) s = fmaf(q_s[g * hd + d], to_f(fkr[d]), s);
     s = warp_sum(s);
+    if (sl != nullptr)
+      s = alibi_add(s, sl[g], n + (tkv != nullptr ? tlen[0] : 0));
     if (lane == 0) {
       const float m_old = m_s[g];
       const float m_new = fmaxf(m_old, s);
@@ -343,7 +363,8 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
     const int* __restrict__ newlen_p, const TC* __restrict__ fresh_kv,
     const __nv_bfloat16* __restrict__ fresh_scale,
     T* __restrict__ out, int Qp, int Hq, int KVH, int shd, int P, int ps,
-    long long LS, long long lbase, int QB, float sm_scale) {
+    long long LS, long long lbase, int QB, float sm_scale,
+    const float* __restrict__ slopes) {
   extern __shared__ float smem[];
   constexpr int kvs = 2 * HD + 1;
   constexpr int sst = kChunk + 1;
@@ -429,6 +450,16 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
 #pragma unroll
           for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
       }
+      if (slopes != nullptr) {
+        // row r holds q head h*G + r%G; key sk+16j sits at c0 + sk + 16j
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float slope = slopes[h * G + (sr + 16 * i) % G];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[i][j] = alibi_add(s[i][j], slope, c0 + sk + 16 * j);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -512,6 +543,7 @@ struct Args {
   int Hq, KVH, hd, shd, P, ps;
   long long LS, lbase;
   float sm_scale;
+  const float* slopes;  // ALiBi slopes f32 [Hq], or null
   cudaStream_t stream;
 };
 
@@ -530,7 +562,7 @@ int launch_decode(const Args& a, const int* ctx, const void* fk,
       (const T*)a.q, (const TC*)a.cache, a.scale, a.scale_lanes, a.pt, ctx,
       (const T*)fk, (const T*)fv, (T*)a.out, a.Hq, a.KVH, a.hd, a.shd, a.P,
       a.ps, a.LS, a.lbase, CH, a.sm_scale, (const TC*)tkv, tscale, tlen, J,
-      layer);
+      layer, a.slopes);
   return (int)cudaGetLastError();
 }
 
@@ -549,7 +581,7 @@ int launch_prefill_hd(const Args& a, const int* start, const int* new_len,
   paged_prefill_kernel<T, TC, HD><<<grid, kThreads, smem, a.stream>>>(
       (const T*)a.q, (const TC*)a.cache, a.scale, a.scale_lanes, a.pt, start,
       new_len, (const TC*)fresh, fresh_scale, (T*)a.out, Qp, a.Hq, a.KVH,
-      a.shd, a.P, a.ps, a.LS, a.lbase, QB, a.sm_scale);
+      a.shd, a.P, a.ps, a.LS, a.lbase, QB, a.sm_scale, a.slopes);
   return (int)cudaGetLastError();
 }
 
@@ -580,7 +612,8 @@ int launch_prefill(const Args& a, const int* start, const int* new_len,
 // the cudaError_t of its launch (0 = success). Decode in block-tail mode
 // takes the side buffer tail_kv (and its scale rows tail_scale when int8),
 // J rows per (layer, row, head), and the device count tail_len; tail_kv
-// null is the plain deferred mode.
+// null is the plain deferred mode. slopes: ALiBi slopes f32 [Hq] on the
+// device, or null for none.
 extern "C" {
 
 int ppl_paged_decode_attention(int dtype, int quant, const void* q,
@@ -592,10 +625,12 @@ int ppl_paged_decode_attention(int dtype, int quant, const void* q,
                                long long ls_rows, int layer,
                                long long num_slots, int chunk, float sm_scale,
                                const void* tail_kv, const void* tail_scale,
-                               const int* tail_len, int J, void* stream) {
+                               const int* tail_len, int J,
+                               const float* slopes, void* stream) {
   const Args a{q, cache, (const __nv_bfloat16*)scale, scale_lanes, page_table,
                out, Hq, KVH, hd, shd, P, page_size, ls_rows,
-               (long long)layer * num_slots, sm_scale, (cudaStream_t)stream};
+               (long long)layer * num_slots, sm_scale, slopes,
+               (cudaStream_t)stream};
   const __nv_bfloat16* ts = (const __nv_bfloat16*)tail_scale;
 #define PPL_DECODE(T, TC) \
   launch_decode<T, TC>(a, ctx, fresh_k, fresh_v, B, chunk, tail_kv, ts, tail_len, J, layer)
@@ -614,10 +649,11 @@ int ppl_paged_prefill_attention(int dtype, int quant, const void* q,
                                 int hd, int shd, int P, int page_size,
                                 long long ls_rows, int layer,
                                 long long num_slots, float sm_scale,
-                                void* stream) {
+                                const float* slopes, void* stream) {
   const Args a{q, cache, (const __nv_bfloat16*)scale, scale_lanes, page_table,
                out, Hq, KVH, hd, shd, P, page_size, ls_rows,
-               (long long)layer * num_slots, sm_scale, (cudaStream_t)stream};
+               (long long)layer * num_slots, sm_scale, slopes,
+               (cudaStream_t)stream};
   const __nv_bfloat16* fs = (const __nv_bfloat16*)fresh_scale;
   if (dtype == 0)
     return quant ? launch_prefill<float, int8_t>(a, start, new_len, fresh_kv, fs, Bp, Qp)

@@ -109,6 +109,10 @@ class _Runner:
     counters and every replay adds them again. The returned tensors are
     the graph's static outputs, which the next replay overwrites: the
     caller copies them out before it dispatches again.
+
+    ``pool_bytes`` is what the capture added to the allocator's reserved
+    device memory: the graph's private pool, held while the runner
+    lives.
     """
 
     def __init__(self, fn, device: torch.device):
@@ -120,6 +124,7 @@ class _Runner:
         self.static_in: List[Optional[torch.Tensor]] = []
         self.static_out: Tuple[torch.Tensor, ...] = ()
         self.launches: Dict[str, int] = {}
+        self.pool_bytes = 0
 
     def __call__(self, *args):
         self.visits += 1
@@ -138,16 +143,19 @@ class _Runner:
     def _capture(self, args) -> None:
         self.static_in = [None if a is None else a.clone() for a in args]
         before = kernels.launch_counts()
+        reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = self.fn(*self.static_in)
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         after = kernels.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
         self.graph, self.static_out = graph, out
-        logger.info("captured a CUDA graph, launches per replay %s; peak "
-                    "device memory %d MiB",
+        logger.info("captured a CUDA graph, launches per replay %s; its "
+                    "pool %d MiB; peak device memory %d MiB",
                     {k: n for k, n in self.launches.items() if n},
+                    self.pool_bytes >> 20,
                     torch.cuda.max_memory_allocated(self.device) >> 20)
 
 
@@ -314,10 +322,13 @@ class LLMEngine:
         return runner
 
     def graph_stats(self) -> Dict[str, int]:
-        """Captured CUDA graphs and their replays so far."""
-        return {"graphs": sum(r.graph is not None
-                              for r in self._runners.values()),
-                "replays": sum(r.replays for r in self._runners.values())}
+        """Captured CUDA graphs, their replays so far, and the bytes their
+        private memory pools hold (what each capture added to the
+        allocator's reserved memory; nothing caps them)."""
+        runners = self._runners.values()
+        return {"graphs": sum(r.graph is not None for r in runners),
+                "replays": sum(r.replays for r in runners),
+                "pool_bytes": sum(r.pool_bytes for r in runners)}
 
     def padded_prefill_tokens(self, n_rows: int, max_chunk_len: int) -> int:
         """The PADDED prefill footprint of the plan (row bucket x token

@@ -18,6 +18,12 @@ call processes a mixed continuous batch
   (and scale rows) in the cache, then final norm, lm_head, penalties and
   sampling.
 
+The model families of the JAX package's one llama-family graph: RoPE
+(LLaMA, InternLM) or ALiBi (``position_encoding="alibi"``, Baichuan-13B:
+no RoPE, the slopes go to K1 and K2), and optional qkv/o projection
+biases (``attn_bias``, InternLM-7B: ``bqkv`` [KVH, G+2, hd] added after
+the qkv matmul, ``bo`` [D] after wo, both in the compute dtype).
+
 :func:`make_multi_step_fn` chains N decode steps into one block, each
 step's sampled tokens feeding the next on the device, as the JAX
 package's decode blocks do; in block-tail mode the block writes the cache
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..ops import attention as attn_ops
 from ..ops import kv_cache as kv_ops
 from ..ops import quant as quant_ops
 from ..ops import sampling as sampling_ops
@@ -103,7 +110,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     s = d ** -0.5
     params = {"embedding": w((cfg.vocab_size, d), 1.0), "layers": []}
     for _ in range(cfg.num_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": ones(),
             "ffn_norm": ones(),
             "wqkv": w((d, n_kv, g + 2, hd), s),
@@ -111,7 +118,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "w_gate_up": w((d, 2, cfg.intermediate_dim), s),
             "w_down": w((cfg.intermediate_dim, d),
                         cfg.intermediate_dim ** -0.5),
-        })
+        }
+        if cfg.attn_bias:
+            layer["bqkv"] = w((n_kv, g + 2, hd), 0.02)
+            layer["bo"] = w((d,), 0.02)
+        params["layers"].append(layer)
     params["final_norm"] = ones()
     params["lm_head"] = w((d, cfg.vocab_size), s)
     return params
@@ -269,6 +280,20 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
     compute_dtype = torch_dtype(cfg.dtype)
     cache_dt = spec.dtype
     matmul = _make_matmul(quant_method)
+    use_alibi = cfg.position_encoding == "alibi"
+    attn_bias = cfg.attn_bias
+    # ALiBi slopes, moved to a device at the step's first visit there,
+    # which is eager: a host-to-device copy inside a CUDA graph capture
+    # would fail it
+    slopes_host = attn_ops.alibi_slopes(n_q) if use_alibi else None
+    slopes_on: Dict[torch.device, torch.Tensor] = {}
+
+    def slopes_for(dev: torch.device) -> Optional[torch.Tensor]:
+        if slopes_host is None:
+            return None
+        if dev not in slopes_on:
+            slopes_on[dev] = slopes_host.to(dev)
+        return slopes_on[dev]
 
     def prep_new_kv(k, v):
         """This layer's new K/V as packed rows in the cache dtype
@@ -295,6 +320,7 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
         tail_kw = ({} if tail is None else
                    dict(tail_kv=tail[0], tail_scale=tail[1],
                         tail_len=tail[2]))
+        alibi = slopes_for(dev)
 
         # ---- flat token metadata ------------------------------------------
         prefill_pos = (inp.prefill_start[:, None]
@@ -330,11 +356,14 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
             h = rms_norm(x, p["attn_norm"], eps)
             t = x.shape[0]
             qkv = matmul(h, p, "wqkv", compute_dtype)    # [T, KVH, G+2, hd]
+            if attn_bias:
+                qkv = qkv + p["bqkv"].to(compute_dtype)
             q = qkv[:, :, :g, :].reshape(t, n_q, hd)
             k = qkv[:, :, g, :]
             v = qkv[:, :, g + 1, :]
-            q = apply_rope(q, flat_pos, theta)
-            k = apply_rope(k, flat_pos, theta)
+            if not use_alibi:
+                q = apply_rope(q, flat_pos, theta)
+                k = apply_rope(k, flat_pos, theta)
             rows, srows = prep_new_kv(k, v)
             new_rows.append(rows)
             new_srows.append(srows)
@@ -342,7 +371,7 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                 attn_d = attn_kernels.paged_decode_attention(
                     q[:bd].contiguous(), kv_cache, kv_scale, pt_decode,
                     ctx_decode, spec, layer=li, fresh_k=k[:bd].contiguous(),
-                    fresh_v=v[:bd].contiguous(), **tail_kw)
+                    fresh_v=v[:bd].contiguous(), alibi=alibi, **tail_kw)
             else:
                 attn_d = q.new_zeros((0, n_q, hd))
             if bp:
@@ -356,12 +385,14 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                     q[bd:].reshape(bp, qp, n_q, hd).contiguous(), kv_cache,
                     kv_scale, pt_prefill, inp.prefill_start,
                     inp.prefill_len, spec, layer=li, fresh_kv=fslab,
-                    fresh_scale=fscale)
+                    fresh_scale=fscale, alibi=alibi)
             else:
                 attn_p = q.new_zeros((0, qp, n_q, hd))
             attn = torch.cat([attn_d.reshape(bd, n_q * hd),
                               attn_p.reshape(bp * qp, n_q * hd)])
             o = matmul(attn, p, "wo", compute_dtype)
+            if attn_bias:
+                o = o + p["bo"].to(o.dtype)
             x = x + o.to(compute_dtype)
 
             h = rms_norm(x, p["ffn_norm"], eps)

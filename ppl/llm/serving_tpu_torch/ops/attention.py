@@ -23,6 +23,12 @@ pages are dequantized as they are gathered; without, it is None. The
 decode self-term is the current token's unquantized k/v; the prefill
 caller passes this step's k/v already round-tripped through int8, as the
 kernel reads them (the JAX package's ``models/llama.py`` does the same).
+
+ALiBi (``alibi`` = f32 slopes ``[q_heads]``) takes the JAX package's
+shift-invariant form: ``slope_h * k_pos`` is added to each score after
+the ``1/sqrt(hd)`` scale and before the mask, where the canonical
+``-slope_h * (q_pos - k_pos)`` differs from it by a per-query constant
+that the softmax drops.
 """
 
 from __future__ import annotations
@@ -35,6 +41,24 @@ import torch
 from .kv_cache import CacheSpec, dequantize_kv, gather_pages
 
 _NEG_INF = -1e30
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """Per-head ALiBi slopes (Press et al.), f32[num_heads]: the
+    geometric sequence 2^(-8h/n) for a power-of-two head count; otherwise
+    the closest power's slopes followed by the odd terms of the next
+    power's (the published recipe, as HF/Baichuan build it)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(num_heads).is_integer():
+        s = pow2_slopes(num_heads)
+    else:
+        closest = 2 ** int(math.floor(math.log2(num_heads)))
+        s = pow2_slopes(closest) + pow2_slopes(2 * closest)[0::2][
+            :num_heads - closest]
+    return torch.tensor(s, dtype=torch.float32)
 
 
 def _gqa_expand(x: torch.Tensor, num_q_heads: int) -> torch.Tensor:
@@ -58,19 +82,26 @@ def decode_attention_ref(
     tail_kv: Optional[torch.Tensor] = None,     # [L, B, KVH, J, 2*shd]
     tail_scale: Optional[torch.Tensor] = None,  # [L, B, J, lanes] if int8
     tail_len: Optional[torch.Tensor] = None,    # i32[1]
+    alibi: Optional[torch.Tensor] = None,       # f32[q_heads] slopes
 ) -> torch.Tensor:                   # [B, q_heads, head_dim]
     """Block-tail mode (``tail_kv`` given, deferred mode only): the cache
     is ``tail_len`` further tokens behind; the block's own earlier tokens
     are rows ``j < tail_len`` of ``tail_kv[layer]`` (packed like cache
     rows, with their scale rows under int8 KV) and join before the
     self-term. Rows with ``context_len == 0`` then give zeros, as the
-    kernel's tail phase does."""
+    kernel's tail phase does.
+
+    ALiBi key positions (the Pallas kernel's): gathered cache column
+    ``j`` sits at ``j``, tail row ``j`` at ``cached + j`` with ``cached
+    = max(context_len - 1 - tail_len, 0)``, the self-term at ``cached +
+    tail_len``."""
     b, num_q_heads, head_dim = q.shape
     k, v = gather_pages(cache, scale, page_table, spec, q.dtype, layer)
     dev = q.device
+    kc = torch.arange(k.shape[1], device=dev)[None, :]        # cache columns
     if fresh_k is None:
-        mask = (torch.arange(k.shape[1], device=dev)[None, :]
-                < context_len[:, None])
+        mask = kc < context_len[:, None]
+        k_pos = kc.expand(b, -1)
     else:
         cached_len = context_len - 1
         ks, vs = [k], [v]
@@ -80,20 +111,28 @@ def decode_attention_ref(
                                 else tail_scale[layer], spec, q.dtype)
             ks.append(tk)
             vs.append(tv)
-        mask = [torch.arange(k.shape[1], device=dev)[None, :]
-                < cached_len[:, None]]
+        mask = [kc < cached_len[:, None]]
+        k_pos = [kc.expand(b, -1)]
+        self_pos = torch.clamp(cached_len, min=0)
         if tail_kv is not None:
             jt = tail_kv.shape[3]
-            mask.append((torch.arange(jt, device=dev) < tail_len)[None, :]
-                        .expand(b, jt))
+            ji = torch.arange(jt, device=dev)[None, :]
+            mask.append((ji < tail_len).expand(b, jt))
+            k_pos.append(cached_len[:, None] + ji)
+            self_pos = cached_len + tail_len
         mask.append(torch.ones((b, 1), dtype=torch.bool, device=dev))
+        k_pos.append(self_pos[:, None])
         mask = torch.cat(mask, dim=1)                         # [B, KV]
+        k_pos = torch.cat(k_pos, dim=1)                       # [B, KV]
         k = torch.cat(ks + [fresh_k.to(q.dtype)[:, None]], dim=1)
         v = torch.cat(vs + [fresh_v.to(q.dtype)[:, None]], dim=1)
     k = _gqa_expand(k, num_q_heads)
     v = _gqa_expand(v, num_q_heads)
     scores = torch.einsum("bhd,bkhd->bhk", q.float(), k.float())
     scores = scores / math.sqrt(head_dim)
+    if alibi is not None:
+        scores = scores + (alibi.float()[None, :, None]
+                           * k_pos.float()[:, None, :])
     scores = torch.where(mask[:, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype).float(),
@@ -131,6 +170,7 @@ def prefill_attention_ref(
     layer: int = 0,
     fresh_k: Optional[torch.Tensor] = None,  # [Bp, Qp, kv_heads, hd]
     fresh_v: Optional[torch.Tensor] = None,
+    alibi: Optional[torch.Tensor] = None,    # f32[q_heads] slopes
 ) -> torch.Tensor:                   # [Bp, Qp, q_heads, head_dim]
     bp, qp, num_q_heads, head_dim = q.shape
     k, v = gather_pages(cache, scale, page_table, spec, q.dtype, layer)
@@ -150,6 +190,9 @@ def prefill_attention_ref(
     kv_len = k.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores / math.sqrt(head_dim)
+    if alibi is not None:
+        k_pos = torch.arange(kv_len, device=dev, dtype=torch.float32)
+        scores = scores + alibi.float()[:, None, None] * k_pos
     # query i sits at absolute position start + i; it sees keys
     # [0, start + i]
     q_pos = start.long()[:, None] + torch.arange(qp, device=dev)[None, :]

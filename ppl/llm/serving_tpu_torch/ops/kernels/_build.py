@@ -28,7 +28,7 @@ from typing import Dict, Iterable, List
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "build" / "kernels"
-SOURCES = ("paged_attention", "quant_matmul")
+SOURCES = ("paged_attention", "quant_matmul", "cache_read")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,7 +7,8 @@ its kernel or raises, never falling back. Each wrapper counts its
 launches in a plain integer attribute (``paged_decode_attention.launches``)
 so a run can show that the main path went through the kernel; decode
 launches in block-tail mode are also counted apart
-(``paged_decode_attention.tail_launches``).
+(``paged_decode_attention.tail_launches``), and so are ALiBi launches
+(``alibi_launches`` on each wrapper).
 
 Contracts are those of the JAX package's Pallas kernels
 (``serving_tpu/ops/pallas/paged_attention.py``) in deferred-append mode:
@@ -23,6 +24,10 @@ rows ``[L*S, scale_lanes]``; the kernels dequantize each page in f32.
 Decode's ``fresh_k/fresh_v`` stay unquantized (q's dtype); prefill's
 ``fresh_kv`` is int8 too, with its scale rows ``fresh_scale
 [Bp, Qp, scale_lanes]``.
+
+``alibi`` (f32 slopes ``[Hq]`` on q's device, or None) adds the ALiBi
+bias ``slope * k_pos`` to every score, at the key positions the plain
+versions document.
 """
 
 from __future__ import annotations
@@ -54,11 +59,11 @@ def _lib():
     if not getattr(lib, "_ppl_typed", False):
         lib.ppl_paged_decode_attention.argtypes = [
             _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-            _I, _I, _LL, _I, _LL, _I, _F, _P, _P, _P, _I, _P]
+            _I, _I, _LL, _I, _LL, _I, _F, _P, _P, _P, _I, _P, _P]
         lib.ppl_paged_decode_attention.restype = _I
         lib.ppl_paged_prefill_attention.argtypes = [
             _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-            _I, _I, _I, _I, _LL, _I, _LL, _F, _P]
+            _I, _I, _I, _I, _LL, _I, _LL, _F, _P, _P]
         lib.ppl_paged_prefill_attention.restype = _I
         lib._ppl_typed = True
     return lib
@@ -112,6 +117,12 @@ def _check_common(name: str, q: torch.Tensor, cache: torch.Tensor,
                           (ls_rows, spec.scale_lanes))
 
 
+def _check_alibi(name: str, alibi, hq: int) -> None:
+    if alibi.dtype != torch.float32 or tuple(alibi.shape) != (hq,):
+        raise ValueError(f"{name}: alibi must be float32 [{hq}], got "
+                         f"{alibi.dtype} {tuple(alibi.shape)}")
+
+
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
@@ -130,6 +141,7 @@ def paged_decode_attention(
     tail_kv=None,                # [L, B, KVH, J, 2*shd] cache dtype
     tail_scale=None,             # bf16 [L, B, J, scale_lanes] if int8
     tail_len=None,               # i32[1]
+    alibi=None,                  # f32[Hq] ALiBi slopes
 ) -> torch.Tensor:               # [B, Hq, hd]
     """K1: decode attention over the paged cache; the cache holds
     ``context_len - 1`` tokens and the current token's k/v enters as a
@@ -139,7 +151,7 @@ def paged_decode_attention(
         out = attn_ops.decode_attention_ref(
             q, cache, scale, page_table, context_len, spec, layer=layer,
             fresh_k=fresh_k, fresh_v=fresh_v, tail_kv=tail_kv,
-            tail_scale=tail_scale, tail_len=tail_len)
+            tail_scale=tail_scale, tail_len=tail_len, alibi=alibi)
         return torch.where((context_len > 0)[:, None, None], out,
                            torch.zeros((), dtype=out.dtype))
     if q.device.type != "cuda":
@@ -166,6 +178,9 @@ def paged_decode_attention(
         extra.update(tail_kv=tail_kv, tail_len=tail_len)
         if spec.quantized:
             extra["tail_scale"] = tail_scale
+    if alibi is not None:
+        _check_alibi("paged_decode_attention", alibi, hq)
+        extra["alibi"] = alibi
     _check_cuda("paged_decode_attention", q.device,
                 ("cache", "scale", "tail_kv", "tail_scale"), q=q,
                 cache=cache, page_table=page_table, context_len=context_len,
@@ -181,7 +196,7 @@ def paged_decode_attention(
         page_table.shape[1], spec.page_size, cache.shape[1], layer,
         spec.num_slots, _DECODE_CHUNK, hd ** -0.5,
         _ptr(extra.get("tail_kv")), _ptr(extra.get("tail_scale")),
-        _ptr(extra.get("tail_len")), jt,
+        _ptr(extra.get("tail_len")), jt, _ptr(alibi),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention: launch failed "
@@ -189,11 +204,14 @@ def paged_decode_attention(
     paged_decode_attention.launches += 1
     if tail_kv is not None:
         paged_decode_attention.tail_launches += 1
+    if alibi is not None:
+        paged_decode_attention.alibi_launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.tail_launches = 0
+paged_decode_attention.alibi_launches = 0
 
 
 def _check_tail(tail_kv, tail_scale, tail_len, cache, spec: CacheSpec,
@@ -236,6 +254,7 @@ def paged_prefill_attention(
     layer: int,
     fresh_kv: torch.Tensor,      # [Bp, KVH, Qp, 2*shd] packed rows
     fresh_scale=None,            # bf16 [Bp, Qp, scale_lanes] if int8
+    alibi=None,                  # f32[Hq] ALiBi slopes
 ) -> torch.Tensor:               # [Bp, Qp, Hq, hd]
     """K2: chunked-causal prefill attention over the paged cache with
     ``start > 0`` support; positions ``>= start`` read ``fresh_kv``."""
@@ -253,7 +272,7 @@ def paged_prefill_attention(
                                       q.dtype)
         return attn_ops.prefill_attention_ref(
             q, cache, scale, page_table, start, new_len, spec, layer=layer,
-            fresh_k=fk, fresh_v=fv)
+            fresh_k=fk, fresh_v=fv, alibi=alibi)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: device {q.device}")
     bp, qp, hq, qhd = q.shape
@@ -278,6 +297,9 @@ def paged_prefill_attention(
         _check_scale_rows("paged_prefill_attention", "fresh_scale",
                           fresh_scale, (bp, qp, spec.scale_lanes))
         extra = {"scale": scale, "fresh_scale": fresh_scale}
+    if alibi is not None:
+        _check_alibi("paged_prefill_attention", alibi, hq)
+        extra["alibi"] = alibi
     _check_cuda("paged_prefill_attention", q.device,
                 ("cache", "fresh_kv", "scale", "fresh_scale"), q=q,
                 cache=cache, page_table=page_table, start=start,
@@ -292,13 +314,16 @@ def paged_prefill_attention(
         fresh_kv.data_ptr(), _ptr(extra.get("fresh_scale")), out.data_ptr(),
         bp, qp, hq, kvh, hd, spec.shd,
         page_table.shape[1], spec.page_size, cache.shape[1], layer,
-        spec.num_slots, hd ** -0.5,
+        spec.num_slots, hd ** -0.5, _ptr(alibi),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_prefill_attention: launch failed "
                            f"(cudaError {err})")
     paged_prefill_attention.launches += 1
+    if alibi is not None:
+        paged_prefill_attention.alibi_launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.alibi_launches = 0

@@ -13,6 +13,9 @@ same epilogue order) and within one bf16 rounding in bf16; K1's block-tail
 phase as K1; w4a8 within
 1e-5 of max|ref| in f32 (the groups' f32 partials are added in another
 order) and, in bf16, within 2^-8 |ref| + 1e-5 max|ref| per element.
+K1/K2 with ALiBi: f32 atol 2e-4 (the JAX package's ALiBi tolerance; the
+scores carry slope * k_pos, up to ~270 at 13B widths, whose f32 ulp is
+~3e-5), bf16 as without. K5 (the page read) exact.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ import torch
 from ppl.llm.serving_tpu_torch.ops import attention as attn_ops
 from ppl.llm.serving_tpu_torch.ops import kv_cache as kv_ops
 from ppl.llm.serving_tpu_torch.ops import quant as quant_ops
+from ppl.llm.serving_tpu_torch.ops.kernels import cache_read
 from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention as pk
 from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul as qk
 from ppl.llm.serving_tpu_torch.ops.kv_cache import CacheSpec
@@ -317,3 +321,140 @@ def test_w4a8_kernel_matches_plain(cuda, group, t, fused):
     ref_bf = quant_ops.w4a8_matmul(xb, wp, ws)
     lim = 2.0 ** -8 * ref_bf.abs() + 1e-5 * float(ref_bf.abs().max())
     assert bool(((out_bf.float() - ref_bf).abs() <= lim).all())
+
+
+ALIBI_TOLS = {torch.float32: dict(atol=2e-4, rtol=2e-5),
+              torch.bfloat16: TOLS[torch.bfloat16]}
+# Baichuan-13B (40 heads, MHA, int8 KV), TinyLlama (G = 8, float cache)
+ALIBI_GEOMS = [(40, 40, 128, True), (32, 4, 64, False)]
+
+
+@pytest.mark.parametrize("tail_len", [None, 1, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kvh,hd,quant", ALIBI_GEOMS)
+def test_alibi_decode_kernel_matches_plain(cuda, hq, kvh, hd, quant, dtype,
+                                           tail_len):
+    """K1's ALiBi branch in its page, tail and self-term phases (plain
+    deferred mode when ``tail_len`` is None)."""
+    spec = CacheSpec(num_layers=2, num_pages=40, page_size=16,
+                     num_kv_heads=kvh, head_dim=hd,
+                     quant_bit=8 if quant else 0,
+                     quant_group=8 if quant else 1, dtype=dtype)
+    if quant:
+        cache, scale = make_int8_cache(spec, cuda, 20)
+    else:
+        cache, scale = make_cache(spec, cuda, 20), None
+    ctx = torch.tensor([0, 2, 17, 160, 300, 8], dtype=torch.int32,
+                       device=cuda)
+    b = ctx.numel()
+    rng = np.random.default_rng(21)
+    pt = torch.from_numpy(rng.integers(0, 40, (b, 20)).astype(
+        np.int32)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q = torch.randn((b, hq, hd), generator=g, device=cuda).to(dtype)
+    fk = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
+    fv = torch.randn((b, kvh, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv,
+              alibi=attn_ops.alibi_slopes(hq).to(cuda))
+    if tail_len is not None:
+        tkv, tscale = make_tail(spec, b, 8, cuda, 23)
+        kw.update(tail_kv=tkv, tail_scale=tscale, tail_len=torch.full(
+            (1,), tail_len, dtype=torch.int32, device=cuda))
+    before = pk.paged_decode_attention.alibi_launches
+    out = pk.paged_decode_attention(q, cache, scale, pt, ctx, spec, **kw)
+    torch.cuda.synchronize()
+    assert pk.paged_decode_attention.alibi_launches == before + 1
+    ref = attn_ops.decode_attention_ref(q, cache, scale, pt, ctx, spec, **kw)
+    ref = torch.where((ctx > 0)[:, None, None], ref, torch.zeros(
+        (), dtype=ref.dtype, device=cuda))
+    torch.testing.assert_close(out.float(), ref.float(), **ALIBI_TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,kvh,hd,quant", ALIBI_GEOMS)
+def test_alibi_prefill_kernel_matches_plain(cuda, hq, kvh, hd, quant, dtype):
+    """K2's ALiBi branch: start 0, a 2-page prefix hit, the replay row
+    and a padding row."""
+    ps, qp = 16, 64
+    spec = CacheSpec(num_layers=2, num_pages=40, page_size=ps,
+                     num_kv_heads=kvh, head_dim=hd,
+                     quant_bit=8 if quant else 0,
+                     quant_group=8 if quant else 1, dtype=dtype)
+    if quant:
+        cache, scale = make_int8_cache(spec, cuda, 24)
+    else:
+        cache, scale = make_cache(spec, cuda, 24), None
+    start = torch.tensor([0, 2 * ps, 2 * ps - 1, 0], dtype=torch.int32,
+                         device=cuda)
+    new_len = torch.tensor([50, 64, 1, 0], dtype=torch.int32, device=cuda)
+    bp = start.numel()
+    pt = (torch.arange(bp * 8, dtype=torch.int32, device=cuda)
+          .reshape(bp, 8) % 40)
+    g = torch.Generator(device=cuda).manual_seed(25)
+    q = torch.randn((bp, qp, hq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((bp, qp, kvh, hd), generator=g, device=cuda)
+    v = torch.randn((bp, qp, kvh, hd), generator=g, device=cuda)
+    if quant:
+        qk8, sk = kv_ops.quantize_kv(k, 8)
+        qv8, sv = kv_ops.quantize_kv(v, 8)
+        fresh = kv_ops.pack_kv_rows(qk8, qv8, spec)
+        fscale = kv_ops.pack_scale_rows(sk, sv, spec).contiguous()
+        fk = kv_ops.dequantize_kv(qk8, sk, 8, dtype)
+        fv = kv_ops.dequantize_kv(qv8, sv, 8, dtype)
+    else:
+        fresh = kv_ops.pack_kv_rows(k, v, spec).to(dtype)
+        fscale, fk, fv = None, k.to(dtype), v.to(dtype)
+    fresh = fresh.permute(0, 2, 1, 3).contiguous()
+    slopes = attn_ops.alibi_slopes(hq).to(cuda)
+    before = pk.paged_prefill_attention.alibi_launches
+    out = pk.paged_prefill_attention(q, cache, scale, pt, start, new_len,
+                                     spec, layer=1, fresh_kv=fresh,
+                                     fresh_scale=fscale, alibi=slopes)
+    torch.cuda.synchronize()
+    assert pk.paged_prefill_attention.alibi_launches == before + 1
+    ref = attn_ops.prefill_attention_ref(q, cache, scale, pt, start, new_len,
+                                         spec, layer=1, fresh_k=fk,
+                                         fresh_v=fv, alibi=slopes)
+    torch.testing.assert_close(out.float(), ref.float(), **ALIBI_TOLS[dtype])
+
+
+def test_alibi_slopes_are_checked(cuda):
+    spec = CacheSpec(num_layers=1, num_pages=4, page_size=16, num_kv_heads=2,
+                     head_dim=16, dtype=torch.float32)
+    cache = make_cache(spec, cuda, 26)
+    q = torch.zeros((1, 4, 16), device=cuda)
+    fk = torch.zeros((1, 2, 16), device=cuda)
+    pt = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    ctx = torch.ones(1, dtype=torch.int32, device=cuda)
+    for bad in (torch.ones(3, device=cuda),
+                torch.ones(4, device=cuda, dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="alibi"):
+            pk.paged_decode_attention(q, cache, None, pt, ctx, spec, layer=0,
+                                      fresh_k=fk, fresh_v=fk, alibi=bad)
+    with pytest.raises(ValueError, match="alibi"):
+        pk.paged_decode_attention(q, cache, None, pt, ctx, spec, layer=0,
+                                  fresh_k=fk, fresh_v=fk,
+                                  alibi=torch.ones(4))
+
+
+@pytest.mark.parametrize("ps,r,rows", [(128, 256, 8), (16, 32, 1),
+                                       (256, 256, 8)])
+def test_page_read_kernel_matches_plain(cuda, ps, r, rows):
+    """K5 exact; 256 x 256 bytes take more than the default 48 kB of
+    shared memory."""
+    g = torch.Generator(device=cuda).manual_seed(27)
+    cache = torch.randint(-128, 128, (4, 3 * ps, r), generator=g,
+                          device=cuda, dtype=torch.int8)
+    before = cache_read.page_read.launches
+    out = cache_read.page_read(cache, rows=rows, page_size=ps)
+    torch.cuda.synchronize()
+    assert cache_read.page_read.launches == before + 1
+    assert torch.equal(out, cache_read.page_read_ref(cache, rows))
+
+
+def test_page_read_kernel_checks_its_arguments(cuda):
+    with pytest.raises(TypeError, match="int8"):
+        cache_read.page_read(torch.zeros((2, 128, 256), device=cuda))
+    with pytest.raises(ValueError, match="rows"):
+        cache_read.page_read(torch.zeros((2, 64, 256), dtype=torch.int8,
+                                         device=cuda))

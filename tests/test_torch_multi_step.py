@@ -369,7 +369,8 @@ def test_engine_defaults_to_blocks():
     gen = port_generator(jengine, kv_max, rc.multi_step)
     try:
         assert gen.engine.multi_step_block == 8
-        assert gen.engine.graph_stats() == {"graphs": 0, "replays": 0}
+        assert gen.engine.graph_stats() == {"graphs": 0, "replays": 0,
+                                            "pool_bytes": 0}
         plan = gen.engine.build_plan([TaskState(
             tid=0, page_list=[0], rest_iters=10, next_tokens=[5],
             start_pos=3)])

@@ -1,6 +1,6 @@
-"""The port's entry points: the offline CLI on the CPU, no silent CPU
-fallback when a GPU is asked for, and every not-yet-ported option
-refused by name."""
+"""The port's entry points: the offline CLI on the CPU (every model
+family), no silent CPU fallback when a GPU is asked for, and every
+not-yet-ported option refused by name."""
 
 import os
 import subprocess
@@ -18,6 +18,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, "tests", "data", "params_tiny.json")
 # the same widths with an int8 group-8 KV cache
 TINY_INT8KV = os.path.join(REPO, "tests", "data", "params_tiny_int8kv.json")
+# the model families: ALiBi over int8 KV (Baichuan), qkv/o biases (InternLM)
+TINY_ALIBI = os.path.join(REPO, "tests", "data", "params_tiny_alibi.json")
+TINY_BIAS = os.path.join(REPO, "tests", "data", "params_tiny_bias.json")
 
 
 @pytest.mark.parametrize("quant,params", [
@@ -173,16 +176,34 @@ def test_w4a8_and_int8_kv_accepted():
                        tensor_parallel_size=2).validate()
 
 
-@pytest.mark.parametrize("field,value,what", [
-    ("position_encoding", "alibi", "ALiBi"),
-    ("attn_bias", True, "attn_bias"),
+@pytest.mark.parametrize("field,value", [
+    ("position_encoding", "alibi"),
+    ("attn_bias", True),
 ])
-def test_model_options_not_ported(field, value, what):
+def test_model_families_validate(field, value):
+    """ALiBi (Baichuan-13B) and qkv/o biases (InternLM-7B) are served."""
     mc = ModelConfig.from_params_json(TINY)
     setattr(mc, field, value)
-    with pytest.raises(ConfigError, match="not yet ported") as e:
-        mc.validate()
-    assert what in str(e.value)
+    mc.validate()
+    with pytest.raises(ConfigError, match="position_encoding"):
+        ModelConfig(**dict(vars(mc), position_encoding="xpos")).validate()
+
+
+@pytest.mark.parametrize("params,family", [
+    pytest.param(TINY_ALIBI, dict(model_type="baichuan",
+                                  position_encoding="alibi"),
+                 id="baichuan-alibi-int8_kv"),
+    pytest.param(TINY_BIAS, dict(model_type="internlm", attn_bias=True),
+                 id="internlm-attn_bias"),
+])
+def test_family_fixture_serves_through_cli(params, family):
+    """A params.json naming the family serves on the CPU; multi-step
+    blocks print what the per-step loop prints."""
+    mc = ModelConfig.from_params_json(params)
+    assert {k: getattr(mc, k) for k in family} == family
+    args = ["--model-param-path", params, "--quant-method", "online_i8i8"]
+    got = run_cli(args, gen_len=12)
+    assert got[:-1] == run_cli(args + ["--multi-step", "1"], gen_len=12)[:-1]
 
 
 def test_sentencepiece_tokenizer_not_ported(tmp_path):
