@@ -19,7 +19,9 @@ K3 on both). The KV-write microbench drives K5 through its own entry
 point.
 
 1. the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel)
+   and counts the tensor-core instructions (cuobjdump -sass) of K3's two
+   tiles (IMMA) and K2's bf16 body (HMMA), failing if either is 0;
 3. one phase per kernel at each path's shapes: kernel vs its plain
    PyTorch version on the same inputs with the stated tolerance, kernel
    ms, plain ms, the least time the card could take (bound), and one
@@ -185,6 +187,27 @@ def bound(bytes_moved, ops, peak_ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_core_check():
+    """The tensor-core instructions in the SASS of the redesigned
+    kernels: IMMA in both of K3's tiles, HMMA in K2's bf16 body."""
+    from ppl.llm.serving_tpu_torch.ops.kernels import _build
+    sass = {src: _build.sass_counts(src)
+            for src in ("quant_matmul", "paged_attention")}
+    for what, src, kernel, op in (
+            ("K3 prefill tile", "quant_matmul", "i8i8_prefill_kernel", "IMMA"),
+            ("K3 decode tile", "quant_matmul", "i8i8_decode_kernel", "IMMA"),
+            ("K2 bf16 body", "paged_attention", "paged_prefill_tc_kernel",
+             "HMMA"),
+            ("K2 f32 body (SIMT)", "paged_attention", "paged_prefill_kernel",
+             "HMMA")):
+        fns = [c for fn, c in sass[src].items() if kernel in fn]
+        n = sum(c[op] for c in fns)
+        log(f"[build] {what}: {n} {op} instructions in {len(fns)} "
+            f"instantiations (cuobjdump -sass)")
+        if "SIMT" not in what:
+            check(len(fns) > 0 and n > 0, f"{what}: no {op} in its SASS")
 
 
 # ------------------------------------------------------------ kernel phases
@@ -625,9 +648,11 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
     return cases
 
 
-def i8i8_cases(torch, timer, qk, quant_ops, cfg, label):
-    """K3 at the widths of ``cfg``: each weight at a decode (T=8) and a
-    prefill (T=1024) size, bf16 out, exact up to one bf16 rounding."""
+def i8i8_cases(torch, timer, qk, quant_ops, cfg, label, ts=(8, 1024)):
+    """K3 at the widths of ``cfg``: each weight at a decode (T=8) and
+    prefill (T=1024, and 4,096 for the 13B prefill step) sizes, bf16 out,
+    exact up to one bf16 rounding; f32 out equal to the plain version bit
+    for bit; at decode sizes (split-K) two runs equal bit for bit."""
     d, inter = cfg["hidden_dim"], cfg["intermediate_dim"]
     hq, kvh = cfg["num_heads"], cfg["num_kv_heads"]
     hd = d // hq
@@ -652,7 +677,7 @@ def i8i8_cases(torch, timer, qk, quant_ops, cfg, label):
         w2 = (wq.permute(1, 0, 2).reshape(k_dim, c * n) if wq.ndim == 3
               else wq.reshape(k_dim, n))
         w2_cm = w2.t().contiguous().t()
-        for t in (8, 1024):
+        for t in ts:
             x = torch.randn((t, k_dim), generator=g, device=dev,
                             dtype=torch.bfloat16)
 
@@ -669,6 +694,16 @@ def i8i8_cases(torch, timer, qk, quant_ops, cfg, label):
             tol = float(ref.float().abs().max()) * 2.0 ** -8
             check(err <= tol,
                   f"K3 {label} {name} T={t}: max|diff| {err} > {tol}")
+            again = kern()
+            out32 = qk.i8i8_matmul(x.float(), wq, ws)
+            ref32 = quant_ops.i8i8_matmul(x.float(), wq, ws)
+            torch.cuda.synchronize()
+            check(torch.equal(out.view(torch.int16), again.view(torch.int16)),
+                  f"K3 {label} {name} T={t}: two runs differ")
+            check(torch.equal(out32, ref32),
+                  f"K3 {label} {name} T={t} f32: max|diff| "
+                  f"{float((out32 - ref32).abs().max())}, not exact")
+            del again, out32, ref32
             xq, _ = quant_ops.quantize_activation(x)
             rows = max(t, 32)   # _int_mm needs more than 16 rows
             xq_lib = torch.zeros((rows, k_dim), dtype=torch.int8,
@@ -1389,6 +1424,7 @@ def main():
             for line in _build.ptxas_report(src).splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {src}: {line.strip()}")
+        tensor_core_check()
 
         timer = Timer(torch)
         results = {name: [] for name in kernels.WRAPPERS}
@@ -1424,10 +1460,11 @@ def main():
                 torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
                 quantized, which, label, alibi=True)
             torch.cuda.empty_cache()
-        for widths, label in ((TINY, "tinyllama"),
-                              (BAICHUAN13B, "baichuan-13b")):
+        for widths, label, ts in ((TINY, "tinyllama", (8, 1024)),
+                                  (BAICHUAN13B, "baichuan-13b",
+                                   (8, 1024, 4096))):
             results["i8i8_matmul"] += i8i8_cases(torch, timer, quant_matmul,
-                                                 quant_ops, widths, label)
+                                                 quant_ops, widths, label, ts)
         results["w4a8_matmul"] = w4a8_cases(torch, timer, quant_matmul,
                                             quant_ops)
         results["page_read"] = page_read_cases(torch, timer, cache_read)

@@ -15,20 +15,23 @@
 // k|v, group): head h's k group scales start at lane h*2*(hd/8), its v
 // group scales hd/8 lanes later. The Pallas kernels dequantize a page
 // with a one-hot matmul in bf16; here each 16-byte load of 16 int8 lanes
-// takes its two group scales with one 4-byte load and is dequantized in
-// f32 on its way into shared memory (int8 x bf16 is exact in f32), so the
-// rest of each kernel is the same for every cache type. An int8 page
-// moves half the bytes of a bf16 one, plus 1/4 of that again in scales.
+// takes its two group scales with one 4-byte load and is dequantized on
+// its way into shared memory: in f32 for K1 and K2's f32 body (int8 x
+// bf16 is exact in f32), rounded once to bf16 for K2's tensor-core body
+// (the Pallas body's bf16 product), so the rest of each kernel is the
+// same for every cache type. An int8 page moves half the bytes of a bf16
+// one, plus 1/4 of that again in scales.
 //
 // What bounds them on an H100: bytes. Decode attention reads every cached
 // K/V byte of the batch once and does 4 flops per cached element per query
 // head of the GQA group (8 for TinyLlama), far under the ~295 flop/byte
-// ridge. Prefill at a few hundred tokens per row is also byte-bound at
-// these widths once the cache is read once per q block, but the SIMT
-// design below re-reads K/V per q block and per kv head, so it is bounded
-// by its own shared-memory traffic first.
+// ridge. Prefill does 4*hd flops per (query row, key) pair; a q block of
+// 64 rows reads each key's 4*hd bytes of bf16 K|V once, 64 flops a byte,
+// still under the ridge: byte-bound (PERF.md's bound counts each cached
+// byte once), and in practice bound by re-reading K/V once per q block
+// and by the latency of each chunk's loads.
 //
-// First design (simple and correct, not yet fast):
+// Designs (K1 is the first one, simple and correct, not yet fast):
 // - K1: one CTA per (row, kv head). The CTA walks the row's page table in
 //   chunks of CH cached tokens; each chunk's K|V rows are read with 16-byte
 //   vector loads into shared memory as f32, the G query heads' scores go to
@@ -47,12 +50,36 @@
 //   Nothing splits the context across CTAs yet (split-K is a later PR),
 //   so a small batch fills few SMs.
 // - K2: one CTA per (prefill row, q block, kv head); a q block is
-//   QB = 64 / G positions so the CTA holds 64 query rows (position, head).
-//   Keys walk up to the causal bound min(ctx, q0 + QB) in chunks of 64;
-//   position p reads the fresh slab when p >= start, the cache otherwise.
-//   Scores use a 4x4 register tile per thread; the mask is
-//   k_pos <= row_pos & row_valid & k_pos < ctx. An inactive q block
-//   writes zeros.
+//   QB = 64 / G positions so the CTA holds 64 query rows (position,
+//   head), row r = i*G + g. Keys walk up to the causal bound
+//   min(ctx, q0 + QB) in chunks of 64; position p reads the fresh slab
+//   when p >= start, the cache otherwise, so a chunk may straddle start.
+//   The mask is k_pos <= row_pos & row_valid & k_pos < ctx. An inactive
+//   q block writes zeros. Two bodies, chosen by q's dtype:
+//   * bf16 (every serving path): flash attention on the tensor cores,
+//     mma.sync.m16n8k16 bf16 with f32 sums. 4 warps of 16 rows; each
+//     warp loads its q fragments once, q * hd^-0.5 rounded to bf16 as
+//     the Pallas body does. A chunk's K and V rows sit in shared memory
+//     as bf16. Before a chunk's copies, 64 threads look up its 64 keys'
+//     rows (fresh slab or page table) into shared memory, once a key, so
+//     the copies wait on no page-table load. bf16 pages come by 16-byte
+//     cp.async into a second buffer while this chunk computes; int8 pages
+//     by cp.async of the raw lanes and their scale pairs into a staging
+//     area, each thread dequantizing its own vectors to bf16 (int8 x bf16
+//     scale rounded once, the Pallas body's bf16 product) after this
+//     chunk computes. S stays in registers (ldmatrix of K rows); ALiBi,
+//     the mask and the online softmax run there, row max and sum over the
+//     quad by shuffles; P, rounded to bf16 as the Pallas body rounds
+//     p_exp, is the A fragment of P.V, whose V fragments come by
+//     ldmatrix.trans. Key groups of 16 past the causal bound or the
+//     warp's last position are skipped (a warp-uniform count dispatched
+//     to unrolled code). An inactive q block writes its zeros 16 bytes a
+//     store.
+//   * f32 (the step checks in f32): the tensor cores take no f32 and TF32
+//     would break the 2e-5 f32 tolerance, so this keeps the first SIMT
+//     design: K/V rows in shared memory as f32, a 4x4 register tile of
+//     scores per thread written to shared memory, the softmax and P.V
+//     from there.
 // - ALiBi (slopes f32 [Hq], or null for none): the Pallas kernels'
 //   shift-invariant form, score += slope * k_pos after the 1/sqrt(hd)
 //   scale and before the mask, q head h*G+g taking slopes[h*G+g]. K1's
@@ -63,7 +90,7 @@
 //   K2's key at c0 + t. The bias is a separate f32 multiply and add
 //   (__fmul_rn/__fadd_rn, never contracted into an fma), as the plain
 //   version computes it.
-// No tensor cores, TMA or cp.async pipelining yet: those are later PRs.
+// K1 uses no tensor cores, TMA or cp.async pipelining yet: later PRs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,7 +98,11 @@
 
 #include <type_traits>
 
+#include "ptx.cuh"
+
 namespace {
+
+using namespace ppl_ptx;
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
@@ -519,17 +550,369 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-// Raise a kernel's dynamic shared-memory limit once per size it grows to,
-// so a launch recorded into a CUDA graph (after an eager run of the same
-// shapes) makes no attribute call.
-template <auto Kern>
-cudaError_t allow_smem(size_t bytes) {
-  static size_t allowed = 48 * 1024;
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) allowed = bytes;
-  return err;
+// ------------------------------------------------- K2 tensor-core bf16 body
+
+constexpr int kTcThreads = 128;  // 4 warps x 16 query rows = kRows
+
+// Shared memory of the tensor-core body: K and V of a key chunk as bf16,
+// each key row 2*HD bytes + 16 of pad so that the 8 rows of an ldmatrix
+// phase fall in 8 different 16-byte bank groups; two chunks for a bf16
+// cache (the next one lands by cp.async while this one computes), one
+// for an int8 cache, whose next chunk lands raw in a staging area (16
+// lanes and their two group scales a vector); and two chunks' key-row
+// pointers (row, int8 scale row).
+template <typename TC, int HD>
+struct TcTile {
+  static constexpr bool kInt8 = std::is_same<TC, int8_t>::value;
+  static constexpr int kStride = 2 * HD + 16;          // bytes per key row
+  static constexpr int kBuf = kChunk * kStride;        // one K or V buffer
+  static constexpr int kKvBufs = kInt8 ? 1 : 2;        // chunks of K|V held
+  static constexpr int kVecs = kChunk * 2 * HD / 16;   // int8 vectors a chunk
+  static constexpr int kStage = kInt8 ? kVecs * (16 + 4) : 0;
+  static constexpr int kPlan = 2 * kChunk * 2 * (int)sizeof(void*);
+  static constexpr int kSmem = 2 * kKvBufs * kBuf + kStage + kPlan;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <typename TC, int HD>
+__global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const TC* __restrict__ cache,
+    const __nv_bfloat16* __restrict__ scale, int scale_lanes,
+    const int* __restrict__ page_table, const int* __restrict__ start_p,
+    const int* __restrict__ newlen_p, const TC* __restrict__ fresh_kv,
+    const __nv_bfloat16* __restrict__ fresh_scale,
+    __nv_bfloat16* __restrict__ out, int Qp, int Hq, int KVH, int shd, int P,
+    int ps, long long LS, long long lbase, int QB, float sm_scale,
+    const float* __restrict__ slopes) {
+  using Tile = TcTile<TC, HD>;
+  constexpr bool kInt8 = Tile::kInt8;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  const int b = blockIdx.x, qb = blockIdx.y, h = blockIdx.z;
+  const int G = Hq / KVH;
+  const int R = QB * G;                     // live rows of this CTA
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int start = start_p[b], new_len = newlen_p[b];
+  const int ctx = start + new_len;
+  const int qi0 = qb * QB;                  // first q index of the block
+  const int q0 = start + qi0;               // its absolute position
+
+  if (qi0 >= new_len) {      // an inactive q block: zeros, 16 bytes a store
+    constexpr int kV = HD / 8;
+    for (int e = tid; e < R * kV; e += kTcThreads) {
+      const int r = e / kV, i = r / G;
+      if (qi0 + i < Qp)
+        reinterpret_cast<uint4*>(
+            out + (((size_t)b * Qp + qi0 + i) * Hq + (size_t)h * G + r - i * G) * HD)[e % kV] =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+
+  // this thread's rows 16*warp + g and 16*warp + g + 8; row r = i*G + g'
+  // holds position q0 + i of q head h*G + g'
+  bool inq[2], valid[2];
+  int rpos[2];
+  float slope[2];
+  size_t orow[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = 16 * warp + g + 8 * j;
+    const int i = r / G, gg = r - i * G;
+    inq[j] = r < R && qi0 + i < Qp;
+    valid[j] = r < R && qi0 + i < new_len;
+    rpos[j] = q0 + i;
+    slope[j] = slopes != nullptr ? slopes[h * G + gg] : 0.f;
+    orow[j] = (((size_t)b * Qp + qi0 + i) * Hq + (size_t)h * G + gg) * HD;
+  }
+  // the warp's last position: key groups past it are masked for all rows
+  const int wpos_hi = q0 + (16 * warp + 15) / G;
+
+  // A fragments of q, loaded once: q * hd^-0.5 rounded to bf16, as the
+  // Pallas body scales and rounds q before its dot
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = j & 1;
+      uint32_t v = 0;
+      if (inq[row]) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+            q + orow[row] + kk * 16 + (j >> 1) * 8 + 2 * tig);
+        v = pack_bf16(__fmul_rn(__low2float(x), sm_scale),
+                      __fmul_rn(__high2float(x), sm_scale));
+      }
+      qa[kk][j] = v;
+    }
+
+  const int lanes = 2 * shd;
+  const TC* cache_h = cache + (size_t)h * LS * lanes;
+  const TC* fresh_h = fresh_kv + ((size_t)b * KVH + h) * (size_t)Qp * lanes;
+  const int head_off = h * 2 * (HD / kKvGroup);
+  const ScaleRows cs{scale, scale_lanes, head_off};
+  const ScaleRows fs{fresh_scale + (fresh_scale ? (size_t)b * Qp * scale_lanes : 0),
+                     scale_lanes, head_off};
+  const int* pt = page_table + (size_t)b * P;
+  const int kv_hi = min(ctx, q0 + QB);      // causal bound of the block
+  const int nch = (kv_hi + kChunk - 1) / kChunk;
+
+  uint8_t* st_raw = tc_smem + 2 * Tile::kKvBufs * Tile::kBuf;
+  uint32_t* st_scale = reinterpret_cast<uint32_t*>(st_raw + Tile::kVecs * 16);
+  const TC** plan_row = reinterpret_cast<const TC**>(st_raw + Tile::kStage);
+  const __nv_bfloat16** plan_srow =
+      reinterpret_cast<const __nv_bfloat16**>(plan_row + 2 * kChunk);
+  auto kv_smem = [&](int buf, int half) {
+    return tc_smem + (2 * buf + half) * Tile::kBuf;
+  };
+
+  // The k|v row (and int8 scale row, this head's lanes) of each key of the
+  // chunk at c0, one key a thread, into plan slot `slot`: the fresh slab's
+  // row pos - start when pos >= start, else the cache row of its slot;
+  // null past kv_hi. The copies then read their addresses from here.
+  auto plan = [&](int slot, int c0) {
+    if (tid < kChunk) {
+      const int pos = c0 + tid;
+      const TC* row = nullptr;
+      const __nv_bfloat16* srow = nullptr;
+      if (pos < kv_hi) {
+        if (pos >= start) {
+          row = fresh_h + (size_t)(pos - start) * lanes;
+          srow = fs.rows + (size_t)(pos - start) * fs.lanes + fs.head_off;
+        } else {
+          const int pidx = min(pos / ps, P - 1);
+          const long long slot_id = lbase + (long long)pt[pidx] * ps + pos % ps;
+          row = cache_h + (size_t)slot_id * lanes;
+          srow = cs.rows + (size_t)slot_id * cs.lanes + cs.head_off;
+        }
+      }
+      plan_row[slot * kChunk + tid] = row;
+      if constexpr (kInt8) plan_srow[slot * kChunk + tid] = srow;
+    }
+  };
+  // The chunk's 16-byte vectors by cp.async, keys past kv_hi as zeros:
+  // bf16 rows straight into K|V buffer buf; int8 rows (16 lanes) and
+  // their two group scales into this thread's own staging slots
+  auto issue = [&](int slot, int buf) {
+    if constexpr (!kInt8) {
+      constexpr int kVec = HD / 8;          // vectors per half row
+#pragma unroll
+      for (int j = 0; j < kChunk * 2 * kVec / kTcThreads; ++j) {
+        const int e = tid + j * kTcThreads;
+        const int t = e / (2 * kVec), v = e % (2 * kVec);
+        const int half = v / kVec, jj = v % kVec;
+        const TC* row = plan_row[slot * kChunk + t];
+        cp_async16(smem_u32(kv_smem(buf, half) + t * Tile::kStride + jj * 16),
+                   row != nullptr ? row + half * shd + jj * 8 : cache,
+                   row != nullptr ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < Tile::kVecs / kTcThreads; ++j) {
+        const int e = tid + j * kTcThreads;
+        const int t = e / (HD / 8), v = e % (HD / 8);
+        const int half = v / (HD / 16), jj = v % (HD / 16);
+        const TC* row = plan_row[slot * kChunk + t];
+        const __nv_bfloat16* srow = plan_srow[slot * kChunk + t];
+        const bool ok = row != nullptr;
+        cp_async16(smem_u32(st_raw + e * 16),
+                   ok ? (const void*)(row + half * shd + jj * 16) : (const void*)cache,
+                   ok ? 16 : 0);
+        cp_async4(smem_u32(st_scale + e),
+                  ok ? (const void*)(srow + half * (HD / kKvGroup) + 2 * jj)
+                     : (const void*)cache,
+                  ok ? 4 : 0);
+      }
+    }
+  };
+  // int8: this thread's staged vectors dequantized to bf16 (int8 x bf16
+  // scale, rounded once, as the Pallas body's bf16 product) into K|V
+  // buffer 0
+  auto dequant = [&]() {
+#pragma unroll
+    for (int j = 0; j < Tile::kVecs / kTcThreads; ++j) {
+      const int e = tid + j * kTcThreads;
+      const int t = e / (HD / 8), v = e % (HD / 8);
+      const int half = v / (HD / 16), jj = v % (HD / 16);
+      float x[16];
+      Vec16<int8_t>::unpack(*reinterpret_cast<const uint4*>(st_raw + e * 16), x);
+      const uint32_t sw = st_scale[e];
+      const float s0 = __uint_as_float(sw << 16);
+      const float s1 = __uint_as_float(sw & 0xffff0000u);
+      uint32_t pk[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float sc = i < 4 ? s0 : s1;
+        pk[i] = pack_bf16(x[2 * i] * sc, x[2 * i + 1] * sc);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(kv_smem(0, half) + t * Tile::kStride + jj * 32);
+      dst[0] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      dst[1] = make_uint4(pk[4], pk[5], pk[6], pk[7]);
+    }
+  };
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[dt][r] = 0.f;
+
+  plan(0, 0);
+  __syncthreads();
+  issue(0, 0);
+  cp_async_commit();
+  if constexpr (kInt8) {
+    cp_async_wait<0>();
+    dequant();
+  }
+  if (nch > 1) plan(1, kChunk);
+  for (int ci = 0; ci < nch; ++ci) {
+    const int c0 = ci * kChunk;
+    const int buf = kInt8 ? 0 : ci & 1;
+    const bool next = ci + 1 < nch;
+    __syncthreads();                        // chunk ci and the next plan in place
+    if (next) issue((ci + 1) & 1, buf ^ 1);
+    cp_async_commit();
+    if constexpr (!kInt8) {
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    const uint8_t* ks = kv_smem(buf, 0);
+    const uint8_t* vs = kv_smem(buf, 1);
+    // live 16-key groups for this warp: below kv_hi and at or before its
+    // rows' last position (warp-uniform); the rest of the chunk is masked
+    const int kg_end = min(kv_hi - 1, wpos_hi) - c0;
+    const int groups = kg_end < 0 ? 0 : min(4, (kg_end >> 4) + 1);
+
+    // S = q k^T, f32 in registers: s[nt] is keys c0 + 8*nt .. +7
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
+    auto qk = [&](auto ng) {
+      constexpr int NG = decltype(ng)::value;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < NG; ++nb) {
+          uint32_t kf[4];
+          const int key = 16 * nb + (lane >> 4) * 8 + (lane & 7);
+          const int dim = 16 * kk + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(kf, smem_u32(ks + key * Tile::kStride + dim * 2));
+          mma_bf16(s[2 * nb], qa[kk], kf[0], kf[1]);
+          mma_bf16(s[2 * nb + 1], qa[kk], kf[2], kf[3]);
+        }
+    };
+    switch (groups) {
+      case 1: qk(std::integral_constant<int, 1>()); break;
+      case 2: qk(std::integral_constant<int, 2>()); break;
+      case 3: qk(std::integral_constant<int, 3>()); break;
+      case 4: qk(std::integral_constant<int, 4>()); break;
+      default: break;
+    }
+    // ALiBi (a separate f32 multiply and add), the mask, the online softmax
+    uint32_t live = 0u;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = j >> 1;
+        const int kp = c0 + 8 * nt + 2 * tig + (j & 1);
+        float v = s[nt][j];
+        if (slopes != nullptr) v = alibi_add(v, slope[row], kp);
+        const bool ok = valid[row] && kp <= rpos[row] && kp < ctx;
+        live |= (ok ? 1u : 0u) << (4 * nt + j);
+        s[nt][j] = ok ? v : kNegInf;
+        mx[row] = fmaxf(mx[row], s[nt][j]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+      const float m_new = fmaxf(m[row], mx[row]);
+      alpha[row] = expf(m[row] - m_new);
+      m[row] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = (live >> (4 * nt + j)) & 1u ? expf(s[nt][j] - m[j >> 1]) : 0.f;
+        s[nt][j] = p;
+        rs[j >> 1] += p;
+      }
+    // l holds this thread's share of the row sums (its quad adds them up
+    // at the end); acc and l rescale by alpha
+#pragma unroll
+    for (int row = 0; row < 2; ++row) l[row] = l[row] * alpha[row] + rs[row];
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+    // O += P V: P rounded to bf16 as the A fragment (the S accumulator's
+    // layout is the A layout), V through ldmatrix.trans
+    auto pv = [&](auto ng) {
+      constexpr int NG = decltype(ng)::value;
+#pragma unroll
+      for (int kk = 0; kk < NG; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t vf[4];
+          const int key = 16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7);
+          const int dim = 16 * dp + (lane >> 4) * 8;
+          ldmatrix_x4_trans(vf, smem_u32(vs + key * Tile::kStride + dim * 2));
+          mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+          mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+        }
+      }
+    };
+    switch (groups) {
+      case 1: pv(std::integral_constant<int, 1>()); break;
+      case 2: pv(std::integral_constant<int, 2>()); break;
+      case 3: pv(std::integral_constant<int, 3>()); break;
+      case 4: pv(std::integral_constant<int, 4>()); break;
+      default: break;
+    }
+    if (ci + 2 < nch) plan(ci & 1, c0 + 2 * kChunk);
+    if constexpr (kInt8) {
+      if (next) {
+        __syncthreads();                    // every warp is done with chunk ci
+        cp_async_wait<0>();
+        dequant();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
+  }
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    if (!inq[row]) continue;
+    const float den = fmaxf(l[row], 1e-30f);
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(out + orow[row] + 8 * dt + 2 * tig) =
+          __floats2bfloat162_rn(o[dt][2 * row] / den, o[dt][2 * row + 1] / den);
+  }
 }
 
 // Everything a launch needs besides the kernel's own shapes.
@@ -585,14 +968,15 @@ int launch_prefill_hd(const Args& a, const int* start, const int* new_len,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TC>
-int launch_prefill(const Args& a, const int* start, const int* new_len,
-                   const void* fresh, const __nv_bfloat16* fresh_scale,
-                   int Bp, int Qp) {
+// the SIMT body for f32 q, or (TC = bf16 / int8 cache, bf16 q) the
+// tensor-core body, at the head dim of the call
+template <template <typename, int> class Launch, typename TC>
+int launch_prefill_by_hd(const Args& a, const int* start, const int* new_len,
+                         const void* fresh, const __nv_bfloat16* fresh_scale,
+                         int Bp, int Qp) {
 #define PPL_PREFILL_CASE(HDV)                                                   \
   case HDV:                                                                     \
-    return launch_prefill_hd<T, TC, HDV>(a, start, new_len, fresh,              \
-                                         fresh_scale, Bp, Qp);
+    return Launch<TC, HDV>::run(a, start, new_len, fresh, fresh_scale, Bp, Qp);
   switch (a.hd) {
     PPL_PREFILL_CASE(16)
     PPL_PREFILL_CASE(32)
@@ -603,6 +987,35 @@ int launch_prefill(const Args& a, const int* start, const int* new_len,
   }
 #undef PPL_PREFILL_CASE
 }
+
+template <typename TC, int HD>
+struct LaunchSimtF32 {
+  static int run(const Args& a, const int* start, const int* new_len,
+                 const void* fresh, const __nv_bfloat16* fresh_scale, int Bp,
+                 int Qp) {
+    return launch_prefill_hd<float, TC, HD>(a, start, new_len, fresh,
+                                            fresh_scale, Bp, Qp);
+  }
+};
+
+template <typename TC, int HD>
+struct LaunchTc {
+  static int run(const Args& a, const int* start, const int* new_len,
+                 const void* fresh, const __nv_bfloat16* fresh_scale, int Bp,
+                 int Qp) {
+    const int QB = kRows / (a.Hq / a.KVH);
+    constexpr size_t smem = TcTile<TC, HD>::kSmem;
+    const cudaError_t err = allow_smem<paged_prefill_tc_kernel<TC, HD>>(smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(Bp, (Qp + QB - 1) / QB, a.KVH);
+    paged_prefill_tc_kernel<TC, HD><<<grid, kTcThreads, smem, a.stream>>>(
+        (const __nv_bfloat16*)a.q, (const TC*)a.cache, a.scale, a.scale_lanes,
+        a.pt, start, new_len, (const TC*)fresh, fresh_scale,
+        (__nv_bfloat16*)a.out, Qp, a.Hq, a.KVH, a.shd, a.P, a.ps, a.LS,
+        a.lbase, QB, a.sm_scale, a.slopes);
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace
 
@@ -655,13 +1068,15 @@ int ppl_paged_prefill_attention(int dtype, int quant, const void* q,
                (long long)layer * num_slots, sm_scale, slopes,
                (cudaStream_t)stream};
   const __nv_bfloat16* fs = (const __nv_bfloat16*)fresh_scale;
+  // f32 q runs the SIMT body (the tensor cores take no f32, and TF32 would
+  // break the f32 tolerance); bf16 q runs the tensor-core body
   if (dtype == 0)
-    return quant ? launch_prefill<float, int8_t>(a, start, new_len, fresh_kv, fs, Bp, Qp)
-                 : launch_prefill<float, float>(a, start, new_len, fresh_kv, fs, Bp, Qp);
+    return quant
+        ? launch_prefill_by_hd<LaunchSimtF32, int8_t>(a, start, new_len, fresh_kv, fs, Bp, Qp)
+        : launch_prefill_by_hd<LaunchSimtF32, float>(a, start, new_len, fresh_kv, fs, Bp, Qp);
   return quant
-      ? launch_prefill<__nv_bfloat16, int8_t>(a, start, new_len, fresh_kv, fs, Bp, Qp)
-      : launch_prefill<__nv_bfloat16, __nv_bfloat16>(a, start, new_len, fresh_kv,
-                                                     fs, Bp, Qp);
+      ? launch_prefill_by_hd<LaunchTc, int8_t>(a, start, new_len, fresh_kv, fs, Bp, Qp)
+      : launch_prefill_by_hd<LaunchTc, __nv_bfloat16>(a, start, new_len, fresh_kv, fs, Bp, Qp);
 }
 
 }  // extern "C"

@@ -1,0 +1,102 @@
+// Inline PTX shared by the kernels of this directory: cp.async copies into
+// shared memory, ldmatrix fragment loads, the int8 and bf16 tensor-core
+// mma.sync shapes, and the once-per-size shared-memory limit.
+//
+// mma.sync fragments (PTX ISA, "Matrix fragments for mma.m16n8k16/k32"):
+// in units of 32-bit registers both shapes below are the same 16 x 8-word
+// A, 8-word x 8 B and 16 x 8 C tiles. With g = lane / 4, tig = lane % 4:
+//   A a0: row g,     word tig      a1: row g + 8, word tig
+//     a2: row g,     word tig + 4  a3: row g + 8, word tig + 4
+//   B b0: words tig (k) of column g, b1: word tig + 4 of column g
+//   C c0, c1: row g, columns 2*tig, 2*tig + 1; c2, c3: row g + 8
+// where a word holds 4 int8 or 2 bf16 consecutive in k, lowest k in the
+// lowest byte.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ppl_ptx {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; copies src_bytes (0 or 16) and zero-fills the
+// rest, so a masked copy writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared, likewise (0 or 4)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8,
+// row l % 8, and register i receives matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed on its way into the registers
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d[16x8 s32] += a[16x32 s8] * b[32x8 s8]: exact integer sums
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[16x8 f32] += a[16x16 bf16] * b[16x8 bf16]
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Raise a kernel's dynamic shared-memory limit once per size it grows to,
+// so a launch recorded into a CUDA graph (after an eager run of the same
+// shapes) makes no attribute call.
+template <auto Kern>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
+}
+
+}  // namespace ppl_ptx

@@ -7,11 +7,13 @@ builds its library (``load``), and :func:`build_all` builds every source
 at once, one ``nvcc`` process per source, all started together.
 
 Libraries land in ``build/kernels/`` inside the package directory (listed
-in ``.gitignore``), named by a hash of the source text and the compiler
-flags, so an edited source never loads a stale library. A build writes
-to a temporary name and renames it into place, and the compiler's
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
-the library as ``<name>.ptxas.txt``.
+in ``.gitignore``), named by a hash of the source text, of every shared
+header (``csrc/*.cuh``) and of the compiler flags, so an edited source or
+header never loads a stale library. A build writes to a temporary name
+and renames it into place, and the compiler's ``-Xptxas -v`` report
+(registers, shared memory, spills) is kept beside the library as
+``<name>.ptxas.txt``. :func:`sass_counts` counts chosen instructions
+(the tensor cores' ``IMMA``, ``HMMA``) per kernel of a built library.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +51,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
+    h = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str):
@@ -104,6 +109,43 @@ def ptxas_report(name: str) -> str:
     return "\n".join(line for line in rep.read_text().splitlines()
                      if "registers" in line or "spill" in line
                      or "Compiling entry" in line)
+
+
+def find_cuobjdump() -> str:
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        nvcc = Path(find_nvcc())
+        tool = str(nvcc.with_name("cuobjdump"))
+    return tool
+
+
+def parse_sass_counts(sass: str, ops: Iterable[str]) -> Dict[str, Dict[str, int]]:
+    """Per function of a ``cuobjdump -sass`` listing, how many
+    instructions start with each opcode of ``ops`` (``IMMA`` matches
+    ``IMMA.16832.S8.S8``, not ``IMMAX``)."""
+    ops = tuple(ops)
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    pat = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+    for line in sass.splitlines():
+        head = line.strip()
+        if head.startswith("Function : "):
+            current = counts.setdefault(head[len("Function : "):].strip(),
+                                        {op: 0 for op in ops})
+            continue
+        m = pat.search(line)
+        if current is not None and m and m.group(1) in ops:
+            current[m.group(1)] += 1
+    return counts
+
+
+def sass_counts(name: str, ops: Iterable[str] = ("IMMA", "HMMA")
+                ) -> Dict[str, Dict[str, int]]:
+    """``parse_sass_counts`` of the built library of source ``name``."""
+    (path,) = build([name])
+    out = subprocess.run([find_cuobjdump(), "-sass", str(path)],
+                         capture_output=True, text=True, check=True)
+    return parse_sass_counts(out.stdout, ops)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,6 +7,11 @@ per-token quantize pass, then the int8 x int8 or int8 x int4 GEMM with
 the scale epilogue) or raises, never falling back.
 ``i8i8_matmul.launches`` and ``w4a8_matmul.launches`` count launches.
 
+K3 runs one of two tensor-core tiles: at ``T <= DECODE_MAX_T`` tokens the
+decode tile, over pieces of K that :func:`plan_split_k` chooses (their
+int32 partial sums meet in a zeroed workspace, so every run gives the
+same bits), above it the prefill tile.
+
 Same two weight contracts as the JAX package's Pallas kernels: plain
 x [T, D] x w [D, ...out] -> [T, ...out] (w4a8: packed [D/2, ...out],
 scales [G, ...out]); fused w [C, D, N] (w4a8: [C, D/2, N], scales
@@ -24,6 +29,11 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _W4_GROUPS = (16, 32, 64, 128)   # the GROUP instantiations in the .cu
+DECODE_MAX_T = 16    # kDecodeMaxT in the .cu: the decode tile's largest T
+K_STAGE = 64         # kDcBK: contraction rows per stage, and per piece
+ROW_ALIGN = 128      # kPfBK: the int8 activation rows' stride is a multiple of it
+TILE_N = 128         # kTileN: weight columns per CTA (both tiles)
+CTAS_PER_SM = 2      # what the split-K planner aims for at decode sizes
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -31,10 +41,11 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_ppl_typed", False):
-        lib.ppl_i8i8_quantize_rows.argtypes = [_I, _P, _P, _P, _I, _I, _P]
+        lib.ppl_i8i8_quantize_rows.argtypes = [_I, _P, _P, _P, _I, _I, _I,
+                                               _P]
         lib.ppl_i8i8_quantize_rows.restype = _I
-        lib.ppl_i8i8_gemm.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _P]
+        lib.ppl_i8i8_gemm.argtypes = [_I, _P, _I, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _P, _P]
         lib.ppl_i8i8_gemm.restype = _I
         lib.ppl_w4a8_gemm.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _I, _P]
@@ -63,18 +74,46 @@ def _check_operands(name: str, x: torch.Tensor, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
-def _quantize_rows(name: str, lib, x: torch.Tensor, stream):
-    """The per-token int8 pass: x [T, D] -> (int8 [T, D], f32 [T])."""
+def _quantize_rows(name: str, lib, x: torch.Tensor, stream, ld=None):
+    """The per-token int8 pass: x [T, D] -> (int8 [T, ld], zero past D,
+    f32 [T]); ``ld`` defaults to D."""
     t, d = x.shape
-    xq = torch.empty((t, d), dtype=torch.int8, device=x.device)
+    ld = d if ld is None else ld
+    xq = torch.empty((t, ld), dtype=torch.int8, device=x.device)
     xs = torch.empty((t,), dtype=torch.float32, device=x.device)
     err = lib.ppl_i8i8_quantize_rows(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                                     xq.data_ptr(), xs.data_ptr(), t, d,
+                                     xq.data_ptr(), xs.data_ptr(), t, d, ld,
                                      stream)
     if err:
         raise RuntimeError(f"{name}: quantize launch failed (cudaError "
                            f"{err})")
     return xq, xs
+
+
+def plan_split_k(t: int, d: int, n: int, c: int, num_sms: int):
+    """K3's pieces of K: ``(splits, kchunk)``. Above ``DECODE_MAX_T``
+    tokens the prefill tile runs whole, ``(1, D rounded up to K_STAGE)``.
+    At decode sizes piece ``i`` covers rows ``[i*kchunk, min(D, (i+1) *
+    kchunk))``, ``kchunk`` a multiple of ``K_STAGE``, none empty, and the
+    ``c * ceil(n / TILE_N) * splits`` CTAs reach ``CTAS_PER_SM * num_sms``
+    unless K has fewer stages than that needs."""
+    stages = -(-d // K_STAGE)
+    if t > DECODE_MAX_T:
+        return 1, stages * K_STAGE
+    tiles = c * -(-n // TILE_N)
+    want = -(-CTAS_PER_SM * num_sms // tiles)
+    per_piece = max(1, stages // want)
+    return -(-stages // per_piece), per_piece * K_STAGE
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device]
 
 
 def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -103,11 +142,19 @@ def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if t:
         lib = _lib()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        xq, xs = _quantize_rows("i8i8_matmul", lib, x, stream)
-        err = lib.ppl_i8i8_gemm(_DTYPE_CODE[out_dtype], xq.data_ptr(),
+        splits, kchunk = plan_split_k(t, d, n, c, _sm_count(x.device))
+        ldx = -(-d // ROW_ALIGN) * ROW_ALIGN
+        xq, xs = _quantize_rows("i8i8_matmul", lib, x, stream, ldx)
+        # split-K: int32 sums [C, T, N] and one counter per column tile
+        part = (torch.zeros(c * t * n + c * -(-n // TILE_N),
+                            dtype=torch.int32, device=x.device)
+                if splits > 1 else None)
+        err = lib.ppl_i8i8_gemm(_DTYPE_CODE[out_dtype], xq.data_ptr(), ldx,
                                 xs.data_ptr(), w_q.data_ptr(),
                                 w_scale.data_ptr(), out.data_ptr(), t, d, n,
-                                c, stream)
+                                c, splits, kchunk,
+                                0 if part is None else part.data_ptr(),
+                                stream)
         if err:
             raise RuntimeError(f"i8i8_matmul: launch failed (cudaError "
                                f"{err})")

@@ -1,0 +1,115 @@
+"""Host-side pieces of the port's kernels that run without a card: K3's
+split-K planner, the build's cache key (sources and shared headers) and
+the SASS instruction counter that ``chip_smoke.py`` reads."""
+
+import pytest
+
+from ppl.llm.serving_tpu_torch.ops.kernels import _build
+from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul as qk
+
+# (D, N, C) of the i8i8 weights the serving paths run: Baichuan-13B,
+# LLaMA-2-7B / InternLM-7B and TinyLlama wqkv / wo / gate|up / down, an
+# odd small shape and a weight thinner than one column tile
+SHAPES = [(5120, 15360, 1), (5120, 5120, 1), (5120, 13696, 2),
+          (13696, 5120, 1), (4096, 12288, 1), (4096, 4096, 1),
+          (4096, 11008, 2), (11008, 4096, 1), (2048, 2560, 1),
+          (2048, 2048, 1), (2048, 5632, 2), (5632, 2048, 1),
+          (260, 196, 1), (260, 196, 2), (128, 64, 1)]
+
+
+@pytest.mark.parametrize("d,n,c", SHAPES)
+@pytest.mark.parametrize("t", [1, 8, 16])
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_split_k_pieces_cover_k(d, n, c, t, num_sms):
+    splits, kchunk = qk.plan_split_k(t, d, n, c, num_sms)
+    assert splits >= 1 and kchunk > 0 and kchunk % qk.K_STAGE == 0
+    pieces = [(i * kchunk, min(d, (i + 1) * kchunk)) for i in range(splits)]
+    assert pieces[0][0] == 0 and pieces[-1][1] == d
+    assert all(lo < hi for lo, hi in pieces)               # none empty
+    assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+    # at least CTAS_PER_SM CTAs per SM, unless K has too few stages
+    tiles = c * -(-n // qk.TILE_N)
+    stages = -(-d // qk.K_STAGE)
+    assert tiles * splits >= min(qk.CTAS_PER_SM * num_sms, tiles * stages)
+
+
+@pytest.mark.parametrize("t", [17, 100, 1024, 4096])
+def test_prefill_sizes_run_whole(t):
+    assert qk.plan_split_k(t, 5120, 13696, 2, 132) == (1, 5120)
+    assert qk.plan_split_k(t, 260, 196, 1, 132) == (1, 320)
+
+
+def test_split_k_at_13b_widths():
+    """The 13B down matmul (70 MB of weight, 40 column tiles) is cut into
+    pieces enough for two CTAs on each of an H100's 132 SMs."""
+    assert qk.plan_split_k(8, 13696, 5120, 1, 132) == (8, 1920)
+    assert qk.plan_split_k(8, 5120, 13696, 2, 132) == (2, 2560)
+
+
+def _src_tree(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (src / "k.cu").write_text('#include "ptx.cuh"\n__global__ void f() {}\n')
+    (src / "ptx.cuh").write_text("#pragma once\n")
+    return src
+
+
+def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """An edited, added or renamed header changes the library's name, so
+    a stale build is never loaded."""
+    src = _src_tree(tmp_path, monkeypatch)
+    seen = [_build.library_path("k")]
+    assert _build.library_path("k") == seen[0]           # stable
+    (src / "ptx.cuh").write_text("#pragma once\n// edited\n")
+    seen.append(_build.library_path("k"))
+    (src / "more.cuh").write_text("#pragma once\n")
+    seen.append(_build.library_path("k"))
+    (src / "more.cuh").rename(src / "other.cuh")
+    seen.append(_build.library_path("k"))
+    (src / "k.cu").write_text("__global__ void g() {}\n")
+    seen.append(_build.library_path("k"))
+    assert len(set(seen)) == len(seen)
+    assert all(p.parent == tmp_path / "build" and p.name.startswith("libk_")
+               for p in seen)
+
+
+def test_library_path_ignores_other_sources(tmp_path, monkeypatch):
+    src = _src_tree(tmp_path, monkeypatch)
+    before = _build.library_path("k")
+    (src / "other.cu").write_text("__global__ void h() {}\n")
+    assert _build.library_path("k") == before
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_119i8i8_decode_kernelILi1ELi16EfEEvPKaiPKf
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                     /* 0x00000a00ff017b82 */
+        /*0010*/                   IMMA.16832.S8.S8 R24, R12.ROW, R28.COL, R24 ;  /* 0x0000001c0c18723c */
+        /*0020*/              @!P0 IMMA.16832.S8.S8 R20, R8.ROW, R28.COL, R20 ;  /* 0x0000001c0814723c */
+        /*0030*/                   PRMT R3, R4, 0x5140, R5 ;                  /* 0x0000514004037816 */
+\t\t..........
+\t\tFunction : _ZN12_GLOBAL__N_123paged_prefill_tc_kernelIaLi128EEEvPK13__nv_bfloat16
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;      /* 0x0000000c0804723c */
+        /*0010*/               @P1 HMMA.16816.F32.BF16 R16, R8, R14, R16 ;    /* 0x0000000e0810723c */
+        /*0020*/                   IMMAX R0, R1 ;                             /* 0x0000000001007210 */
+        /*0030*/                   EXIT ;                                     /* 0x000000000000794d */
+"""
+
+
+def test_parse_sass_counts():
+    counts = _build.parse_sass_counts(SASS, ("IMMA", "HMMA"))
+    dec, tc = sorted(counts)
+    assert "i8i8_decode_kernel" in dec and "paged_prefill_tc_kernel" in tc
+    assert counts[dec] == {"IMMA": 2, "HMMA": 0}
+    assert counts[tc] == {"IMMA": 0, "HMMA": 2}
+
+
+def test_mma_ceiling_needs_a_card():
+    from ppl.llm.serving_tpu_torch.tools import mma_ceiling
+    with pytest.raises(ValueError, match="CUDA device"):
+        mma_ceiling.run(device="cpu")
+    assert {name for name, _, _ in mma_ceiling.SHAPES} == {
+        "IMMA m16n8k32 s8", "HMMA m16n8k16 bf16"}

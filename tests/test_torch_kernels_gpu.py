@@ -106,10 +106,18 @@ def test_prefill_kernel_matches_plain(cuda, dtype, hq, kvh, hd):
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
 
 
-@pytest.mark.parametrize("t", [1, 8, 100])
+# K3 at T on either side of the decode tile's 8 and 16 rows and of the
+# prefill tile's 128, at 256 x 192 and at the edges the tiles mask: D % 32
+# != 0, N not a multiple of the 128-column tile (nor of 16: 4-byte weight
+# copies)
+K3_TS = [1, 8, 9, 16, 17, 100, 1024, 4096]
+
+
+@pytest.mark.parametrize("t", K3_TS)
 @pytest.mark.parametrize("fused", [False, True])
-def test_i8i8_kernel_matches_plain(cuda, t, fused):
-    d, n = 256, 192
+@pytest.mark.parametrize("d,n", [(256, 192), (260, 196)])
+def test_i8i8_kernel_matches_plain(cuda, t, fused, d, n):
+    """Exact in f32 and in bf16 (the same f32 value rounded once)."""
     g = torch.Generator(device=cuda).manual_seed(4)
     w = torch.randn(((2, d, n) if fused else (d, n)), generator=g,
                     device=cuda) * 0.05
@@ -120,8 +128,10 @@ def test_i8i8_kernel_matches_plain(cuda, t, fused):
     else:
         wq, ws = quant_ops.quantize_weight(w)
     x = torch.randn((t, d), generator=g, device=cuda)
+    before = qk.i8i8_matmul.launches
     out = qk.i8i8_matmul(x, wq, ws)
     torch.cuda.synchronize()
+    assert qk.i8i8_matmul.launches == before + 1
     ref = quant_ops.i8i8_matmul(x, wq, ws)
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     out_bf = qk.i8i8_matmul(x.to(torch.bfloat16), wq, ws,
@@ -458,3 +468,104 @@ def test_page_read_kernel_checks_its_arguments(cuda):
     with pytest.raises(ValueError, match="rows"):
         cache_read.page_read(torch.zeros((2, 64, 256), dtype=torch.int8,
                                          device=cuda))
+
+
+def _i8i8_operands(dev, d, n, fused, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(((2, d, n) if fused else (d, n)), generator=g,
+                    device=dev) * d ** -0.5
+    if fused:
+        qs = [quant_ops.quantize_weight(w[c]) for c in range(2)]
+        return (torch.stack([q for q, _ in qs]).contiguous(),
+                torch.stack([s for _, s in qs]).contiguous(), g)
+    wq, ws = quant_ops.quantize_weight(w)
+    return wq, ws, g
+
+
+# Baichuan-13B's K3 weights: wqkv, wo, gate|up (fused), down
+K3_13B = [("wqkv", 5120, 15360, False), ("wo", 5120, 5120, False),
+          ("gate|up", 5120, 13696, True), ("down", 13696, 5120, False)]
+
+
+@pytest.mark.parametrize("name,d,n,fused", K3_13B)
+@pytest.mark.parametrize("t", [8, 16])
+def test_i8i8_kernel_split_k_is_exact_and_repeatable(cuda, name, d, n,
+                                                     fused, t):
+    """At the 13B widths the decode tile cuts K into pieces whose int32
+    sums meet by atomicAdd: equal to the plain version bit for bit, and
+    two runs give the same bits."""
+    wq, ws, g = _i8i8_operands(cuda, d, n, fused, 40)
+    splits, _ = qk.plan_split_k(t, d, n, 2 if fused else 1,
+                                torch.cuda.get_device_properties(
+                                    cuda).multi_processor_count)
+    assert splits > 1
+    x = torch.randn((t, d), generator=g, device=cuda)
+    first = qk.i8i8_matmul(x, wq, ws)
+    second = qk.i8i8_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert torch.equal(first, quant_ops.i8i8_matmul(x, wq, ws))
+    xb = x.to(torch.bfloat16)
+    a = qk.i8i8_matmul(xb, wq, ws, out_dtype=torch.bfloat16)
+    b = qk.i8i8_matmul(xb, wq, ws, out_dtype=torch.bfloat16)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+# K2's tensor-core body: MHA at hd 128 (G = 1) and TinyLlama's G = 8 at
+# hd 64; Qp = 100 (not a multiple of 64); row 1's start (31) puts the
+# cache/fresh boundary inside key chunk 0 and row 2's (70) inside chunk
+# 1; row 3 has new_len 0
+TC_GEOMS = [(8, 8, 128), (32, 4, 64)]
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,kvh,hd", TC_GEOMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_tc_kernel_matches_plain(cuda, dtype, hq, kvh, hd, quant,
+                                         alibi):
+    ps, qp = 16, 100
+    spec = CacheSpec(num_layers=2, num_pages=48, page_size=ps,
+                     num_kv_heads=kvh, head_dim=hd,
+                     quant_bit=8 if quant else 0,
+                     quant_group=8 if quant else 1, dtype=dtype)
+    if quant:
+        cache, scale = make_int8_cache(spec, cuda, 50)
+    else:
+        cache, scale = make_cache(spec, cuda, 50), None
+    start = torch.tensor([0, 2 * ps - 1, 70, 16], dtype=torch.int32,
+                         device=cuda)
+    new_len = torch.tensor([100, 64, 30, 0], dtype=torch.int32, device=cuda)
+    bp = start.numel()
+    rng = np.random.default_rng(51)
+    pt = torch.from_numpy(np.stack([rng.choice(48, 12, replace=False)
+                                    for _ in range(bp)]).astype(
+                                        np.int32)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(52)
+    q = torch.randn((bp, qp, hq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((bp, qp, kvh, hd), generator=g, device=cuda)
+    v = torch.randn((bp, qp, kvh, hd), generator=g, device=cuda)
+    if quant:
+        qk8, sk = kv_ops.quantize_kv(k, 8)
+        qv8, sv = kv_ops.quantize_kv(v, 8)
+        fresh = kv_ops.pack_kv_rows(qk8, qv8, spec)
+        fscale = kv_ops.pack_scale_rows(sk, sv, spec).contiguous()
+        fk = kv_ops.dequantize_kv(qk8, sk, 8, dtype)
+        fv = kv_ops.dequantize_kv(qv8, sv, 8, dtype)
+    else:
+        fresh = kv_ops.pack_kv_rows(k, v, spec).to(dtype)
+        fscale, fk, fv = None, k.to(dtype), v.to(dtype)
+    fresh = fresh.permute(0, 2, 1, 3).contiguous()
+    slopes = attn_ops.alibi_slopes(hq).to(cuda) if alibi else None
+    before = pk.paged_prefill_attention.launches
+    out = pk.paged_prefill_attention(q, cache, scale, pt, start, new_len,
+                                     spec, layer=1, fresh_kv=fresh,
+                                     fresh_scale=fscale, alibi=slopes)
+    torch.cuda.synchronize()
+    assert pk.paged_prefill_attention.launches == before + 1
+    ref = attn_ops.prefill_attention_ref(q, cache, scale, pt, start, new_len,
+                                         spec, layer=1, fresh_k=fk,
+                                         fresh_v=fv, alibi=slopes)
+    tols = ALIBI_TOLS if alibi else TOLS
+    torch.testing.assert_close(out.float(), ref.float(), **tols[dtype])
+    assert bool((out[3] == 0).all()) and bool((out[1, 64:] == 0).all())
