@@ -15,13 +15,15 @@ block a CUDA graph once its program key recurs), and in blocks with
 block-tail mode (K1's tail phase); Baichuan-13B widths with ALiBi and
 InternLM-7B widths with qkv/o biases, both online_i8i8 over int8 KV in
 the default serving configuration (K1/K2's ALiBi branches on the first,
-K3 on both). The KV-write microbench drives K5 through its own entry
-point.
+K3 on both); and Baichuan-13B again with the auto-sized KV pool, its
+bucket grid validated before serving. The KV-write microbench drives K5
+through its own entry point.
 
 1. the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel)
    and counts the tensor-core instructions (cuobjdump -sass) of K3's two
-   tiles (IMMA) and K2's bf16 body (HMMA), failing if either is 0;
+   tiles (IMMA) and K1's and K2's bf16 bodies (HMMA), failing if any is
+   0;
 3. one phase per kernel at each path's shapes: kernel vs its plain
    PyTorch version on the same inputs with the stated tolerance, kernel
    ms, plain ms, the least time the card could take (bound), and one
@@ -29,7 +31,7 @@ point.
    (never called by the port; none exists for K4, which gets torch._int_mm
    on the unpacked int8 weight as an orientation figure only); K1 also in
    block-tail mode; K1/K2 with ALiBi (SDPA with the bias as its mask);
-   K5 exact;
+   K5 exact; K1's rows also print the context splits S of their grid;
 4. step cross-checks: 2-layer models at full width, same weights on cuda
    (kernels) and cpu (plain versions), one mixed decode+prefill step in
    float32: logits within tolerance, greedy tokens equal, written cache
@@ -45,7 +47,11 @@ point.
    after (also the engine's graph replays, the bytes its graph pools
    hold, and its device-fed or continuation dispatches); then a
    torch.profiler pass over the same traffic for the device-time
-   breakdown;
+   breakdown. The six paths pin their KV pools and capture each program
+   key at its second visit; the seventh sizes its pool after validating
+   the bucket grid (create_engine with no kv_cache_max_tokens), prints
+   the kept grid, the graph bytes, the pool and the serving peak against
+   the card's memory, and fails if a graph is captured while serving;
 6. the KV-write microbench at the 7B geometry: forms a-h timed, b-d and
    f-h held to (a)'s cache bytes, K5's launches counted over the run;
 7. the ``kernels`` JSON line, then the device JSON line last.
@@ -54,6 +60,7 @@ point.
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -168,6 +175,10 @@ def f32_excess(out, ref, atol=F32_TOL):
 def report(kernel, c):
     """Log one phase-3 case as soon as it is measured."""
     lib = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+    splits = f", S={c['splits']}" if "splits" in c else ""
+    if "ms_unsplit" in c:
+        splits += (f" (unsplit {c['ms_unsplit']:.4f} ms; its counter "
+                   f"memset alone {c['counter_memset_ms']:.4f} ms)")
     f32 = ("" if "f32_max_abs_err" not in c else
            f", f32 max|diff| {c['f32_max_abs_err']:.3g} (atol "
            f"{c['f32_tol']}, rtol {F32_TOL})")
@@ -176,7 +187,8 @@ def report(kernel, c):
         orient = f"{orient:.4f}"
     orient = ("" if orient is None else f", _int_mm on the unpacked weight "
               f"(orientation only) {orient} ms")
-    log(f"[kernel] {kernel} {c['case']}: max|diff| {c['max_abs_err']:.3g} "
+    log(f"[kernel] {kernel} {c['case']}{splits}: max|diff| "
+        f"{c['max_abs_err']:.3g} "
         f"(tol {c['tol']}){f32}, kernel {c['ms']:.4f} ms, plain "
         f"{c['plain_ms']:.4f} ms, library {lib} ms{orient}, bound "
         f"{c['bound_ms']:.5f} ms ({c['bound_by']}) on {CARD[0]}")
@@ -189,15 +201,35 @@ def bound(bytes_moved, ops, peak_ops):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernel_name(mangled):
+    """A kernel's name and mangled template arguments from its mangled
+    name (``paged_decode_tc_kernelIaLi128E``: signed char, 128)."""
+    pos = 3 if mangled.startswith("_ZN") else 2     # nested name or not
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if m is None:
+            return mangled
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += len(name)
+        if name.endswith("kernel"):
+            return name + mangled[pos:].split("EEv")[0]
+
+
 def tensor_core_check():
     """The tensor-core instructions in the SASS of the redesigned
-    kernels: IMMA in both of K3's tiles, HMMA in K2's bf16 body."""
+    kernels: IMMA in both of K3's tiles, HMMA in K1's and K2's bf16
+    bodies."""
     from ppl.llm.serving_tpu_torch.ops.kernels import _build
     sass = {src: _build.sass_counts(src)
             for src in ("quant_matmul", "paged_attention")}
     for what, src, kernel, op in (
             ("K3 prefill tile", "quant_matmul", "i8i8_prefill_kernel", "IMMA"),
             ("K3 decode tile", "quant_matmul", "i8i8_decode_kernel", "IMMA"),
+            ("K1 bf16 body", "paged_attention", "paged_decode_tc_kernel",
+             "HMMA"),
+            ("K1 f32 body (SIMT)", "paged_attention", "paged_decode_kernel",
+             "HMMA"),
             ("K2 bf16 body", "paged_attention", "paged_prefill_tc_kernel",
              "HMMA"),
             ("K2 f32 body (SIMT)", "paged_attention", "paged_prefill_kernel",
@@ -301,10 +333,10 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
                          dtype=torch.bfloat16)
         layer = L - 1
 
-        def kern(q=q, cache=cache, fk=fk, fv=fv, spec=spec):
+        def kern(q=q, cache=cache, fk=fk, fv=fv, spec=spec, splits=None):
             return pk.paged_decode_attention(
                 q, cache, scale, pt_t, ctx_t, spec, layer=layer, fresh_k=fk,
-                fresh_v=fv)
+                fresh_v=fv, splits=splits)
 
         def plain(q=q, cache=cache, fk=fk, fv=fv, spec=spec):
             out = attn_ops.decode_attention_ref(
@@ -315,6 +347,7 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
 
         out = kern()
         ref = plain()
+        splits = decode_splits(torch, pk, b, kvh)
         # the same inputs in f32: bf16 rounding hides a lost key (a move of
         # about 1/ctx), the f32 limit does not
         f32 = dict(q=q.float(), fk=fk.float(), fv=fv.float(),
@@ -358,12 +391,31 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
         cases.append(report("paged_decode_attention", dict(
                           case=f"{label} B={b} bf16 ctx {int(ctx.min())}-"
                           f"{lmax}", path=label, max_abs_err=err,
+                          splits=splits,
+                          **split_costs(torch, timer, kern, splits, b, kvh),
                           tol=BF16_TOL, f32_max_abs_err=err32,
                           f32_tol=F32_TOL,
                           ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
                           library_ms=timer.ms(lib, iters=5),
                           bound_ms=bms, bound_by=by)))
     return cases
+
+
+def decode_splits(torch, pk, b, kvh):
+    """The context splits S that K1's bf16 body runs at for this grid
+    (the wrapper's own plan over the e2e page-table width)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pk.plan_decode_splits(b, kvh, KVP, sms)
+
+
+def split_costs(torch, timer, kern, splits, b, kvh):
+    """For a split K1 case: the same call unsplit (S = 1), and the zeroed
+    arrival counters alone (the memset the split needs)."""
+    if splits == 1:
+        return {}
+    return dict(ms_unsplit=timer.ms(lambda: kern(splits=1)),
+                counter_memset_ms=timer.ms(lambda: torch.zeros(
+                    b * kvh, dtype=torch.int32, device="cuda")))
 
 
 def alibi_mask(torch, mask, slopes, k_pos, dtype):
@@ -517,6 +569,7 @@ def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
         cases.append(report("paged_decode_attention", dict(
             case=f"{case} bf16 ctx {int(ctx.min())}-{int(ctx.max())}",
             path=label, max_abs_err=err,
+            splits=decode_splits(torch, pk, b, kvh),
             tol=ALIBI_BF16_TOL if alibi else BF16_TOL, f32_max_abs_err=err32,
             f32_tol=ALIBI_F32_ATOL if alibi else F32_TOL, ms=timer.ms(kern),
             plain_ms=timer.ms(plain, iters=5),
@@ -1178,9 +1231,10 @@ def microbench(torch, kernels, name_limit):
 # kernels that must launch, kernels that must not). The 7B block paths
 # serve the 7B path's workload and weights in decode blocks of 8. The
 # model-family paths run the default serving configuration (blocks of
-# 8, block_tail "auto", one speculative block). No serving path reads
-# the cache with K5, and only the ALiBi path launches K1/K2's ALiBi
-# branches.
+# 8, block_tail "auto", one speculative block); the last path is the
+# 13B one with the default auto-sized KV pool, sized after create_engine
+# validates the bucket grid. No serving path reads the cache with K5,
+# and only the ALiBi paths launch K1/K2's ALiBi branches.
 W4_7B = dict(quant_method="online_w4a8", quantize_lm_head=True,
              kv_cache_max_tokens=16384)
 I8_16K = dict(quant_method="online_i8i8", kv_cache_max_tokens=16384)
@@ -1209,13 +1263,18 @@ PATHS = [
     ("internlm-7b i8i8 int8-kv bias", INTERNLM7B, I8_16K,
      ATTN + ("i8i8_matmul",),
      ("w4a8_matmul", "paged_decode_attention_tail") + NEVER),
+    ("baichuan-13b i8i8 int8-kv alibi auto-pool", BAICHUAN13B,
+     dict(quant_method="online_i8i8"), ATTN + ("i8i8_matmul",) + ALIBI,
+     ("w4a8_matmul", "paged_decode_attention_tail", "page_read")),
 ]
 
 
 def end_to_end(torch, port, name_limit, label, widths, resource, launched,
                idle):
     """Serve the 8-request workload on the card through the user's entry
-    points, on one path."""
+    points, on one path. A path without ``kv_cache_max_tokens`` takes the
+    auto-sized pool: create_engine validates the bucket grid, and no graph
+    may be captured after that."""
     cfgs = port["config"]
     kernels = port["kernels"]
     model_cfg = cfgs.ModelConfig(**widths)
@@ -1225,30 +1284,46 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         max_output_tokens_per_request=256,
         max_total_tokens_per_request=8192)
     rcfg = cfgs.ResourceConfig(**resource)
+    auto = not rcfg.kv_cache_max_tokens
     gc.collect()                 # the previous path's engine and graphs
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine, kv_max = port["create_engine"](model_cfg, rcfg, gen_cfg,
-                                           rng_seed=SEED)
+    engine, kv_max, max_running_batch = port["create_engine"](
+        model_cfg, rcfg, gen_cfg, rng_seed=SEED)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    auto = port["compute_kv"](model_cfg, cfgs.ResourceConfig(),
-                              torch.cuda.mem_get_info()[0])
+    gen_cfg.max_running_batch = max_running_batch
     nbytes = sum(t.numel() * t.element_size() for t in
                  [v for k, v in engine._params.items() if k != "layers"]
                  + [v for lp in engine._params["layers"] for v in lp.values()])
     kv_bytes = sum(t.numel() * t.element_size()
                    for t in (engine.kv_cache, engine.kv_scale)
                    if t is not None)
+    graphs_ready = engine.graph_stats()
     log(f"[e2e {label}] engine ready in {setup_s:.1f} s; weights "
         f"{nbytes / 1e9:.2f} GB, KV pool {kv_max} tokens in "
-        f"{kv_bytes / 1e9:.2f} GB ({engine.kv_cache.dtype}) (explicit); "
-        f"the auto-sized pool would be {auto} tokens (free {free >> 20} MiB "
+        f"{kv_bytes / 1e9:.2f} GB ({engine.kv_cache.dtype}) "
+        f"({'auto-sized' if auto else 'explicit'}); free {free >> 20} MiB "
         f"of {total >> 20} MiB before weights; peak "
-        f"{torch.cuda.max_memory_allocated() >> 20} MiB while building)")
+        f"{torch.cuda.max_memory_allocated() >> 20} MiB while building")
+    if auto:
+        log(f"[e2e {label}] bucket grid validated before serving: batch "
+            f"buckets {engine.batch_buckets}, max_running_batch "
+            f"{max_running_batch}, max_prefill_rows "
+            f"{engine.max_prefill_rows or 'none capped'}; "
+            f"{graphs_ready['graphs']} CUDA graphs in one shared pool of "
+            f"{graphs_ready['pool_bytes'] >> 20} MiB (budget "
+            f"{engine.graph_budget_bytes >> 20} MiB: the provisional "
+            f"engine's peak above the weights); validation peak "
+            f"{engine.validation_peak_bytes >> 20} MiB above the KV pool, "
+            f"on {name_limit}")
     # from here: the serving peak (warm-up, graph captures, the runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_w = torch.cuda.mem_get_info()[0] + kv_bytes   # after the weights
+    reserved0 = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     conn = port["LocalConnection"]()
     gen = port["LLMGenerator"](model_cfg, gen_cfg, engine,
@@ -1270,32 +1345,58 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         check(conn.wait(timeout=600), "e2e: generation timed out")
         return time.perf_counter() - t, reqs
 
+    def no_new_graphs(when):
+        # a validated grid captures nothing while serving
+        if auto:
+            n = engine.graph_stats()["graphs"]
+            check(n == graphs_ready["graphs"], f"e2e {label}: {n} CUDA "
+                  f"graphs {when}, {graphs_ready['graphs']} after "
+                  "validation: a capture ran while serving")
+
     try:
         # warm-up: first launches, then the main run's shapes twice, so
         # that every program key it visits has had its eager first run
-        # and its CUDA graph capture; the main run replays
+        # and its CUDA graph capture (or, on a validated grid, stays the
+        # eager key or the graph validation made); the main run replays
         serve(2, 4, 1000)
         warm = [serve(8, 32, 2000 + 100 * i)[0] for i in range(2)]
         log(f"[e2e {label}] warm-up passes of the main run's shape: "
             + ", ".join(f"{w:.3f} s" for w in warm))
+        no_new_graphs("after the warm-up passes")
         graphs0 = engine.graph_stats()
+        if not auto:
+            # what create_engine's auto-sizing would serve with this
+            # path's graphs: the same function, over the memory free
+            # after the weights less what the warm-up reached above them
+            would = port["kv_pool_tokens"](
+                model_cfg, cfgs.ResourceConfig(), free_w,
+                torch.cuda.max_memory_reserved() - reserved0)
+            log(f"[e2e {label}] the auto-sized pool would be {would} tokens "
+                f"({free_w >> 20} MiB free after the weights, less the "
+                f"{(torch.cuda.max_memory_reserved() - reserved0) >> 20} "
+                f"MiB that the warm-up's graphs and eager visits reached)")
         dispatches0 = dict(engine.dispatch_counts)
         kernels.reset_launch_counts()
         elapsed, reqs = serve(8, 32, 0)
         counts = kernels.launch_counts()
+        no_new_graphs("after the main run")
         graphs = engine.graph_stats()
         replays = graphs["replays"] - graphs0["replays"]
         dispatches = {k: v - dispatches0[k]
                       for k, v in engine.dispatch_counts.items()}
         log(f"[e2e {label}] launch counts over the main-path run: {counts}")
-        peak, held = (torch.cuda.max_memory_allocated() >> 20,
-                      torch.cuda.memory_reserved() >> 20)
+        peak, held, peak_held = (torch.cuda.max_memory_allocated() >> 20,
+                                 torch.cuda.memory_reserved() >> 20,
+                                 torch.cuda.max_memory_reserved() >> 20)
         pools = graphs["pool_bytes"] >> 20
         log(f"[e2e {label}] dispatches {dispatches}; CUDA graphs "
             f"{graphs['graphs']} captured, {replays} replays in the run, "
-            f"their private pools {pools} MiB in all; device memory while "
-            f"serving: peak allocated {peak} MiB, held by the allocator "
-            f"(graph pools included) {held} MiB")
+            f"their shared pool {pools} MiB; device memory while serving: "
+            f"peak allocated {peak} MiB, held by the allocator (graph pool "
+            f"included) {held} MiB, at most {peak_held} MiB, of the card's "
+            f"{total >> 20} MiB on {name_limit}")
+        check(peak_held < total >> 20, f"e2e {label}: the serving peak "
+              f"{peak_held} MiB is not under the card's {total >> 20} MiB")
         if engine.multi_step_block > 1:
             check(dispatches["fed"] + dispatches["continuation"] > 0,
                   f"e2e {label}: no device-fed or continuation dispatch")
@@ -1331,6 +1432,7 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
             serve(8, 32, 100)
             torch.cuda.synchronize()
             p_elapsed = time.perf_counter() - t_p
+        no_new_graphs("after the profiled run")
         rows = []
         for ev in prof.key_averages():
             if getattr(ev, "device_type", None) != \
@@ -1356,7 +1458,12 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
                     device_busy_ms=busy_ms, dispatches=dispatches,
                     graphs=graphs["graphs"], graph_replays=replays,
                     graph_pool_mib=pools, serving_peak_mib=peak,
-                    held_mib=held,
+                    held_mib=held, peak_held_mib=peak_held,
+                    total_mib=total >> 20, kv_tokens=kv_max,
+                    kv_gb=kv_bytes / 1e9,
+                    batch_buckets=list(engine.batch_buckets),
+                    max_prefill_rows=dict(engine.max_prefill_rows),
+                    max_running_batch=max_running_batch,
                     tokens={r.id: list(conn.tokens[r.id]) for r in reqs})
     finally:
         gen.shutdown()
@@ -1378,8 +1485,6 @@ def main():
         from ppl.llm.serving_tpu_torch import config as port_config
         from ppl.llm.serving_tpu_torch import engine as port_engine
         from ppl.llm.serving_tpu_torch.connection import LocalConnection
-        from ppl.llm.serving_tpu_torch.engine import (
-            compute_kv_cache_max_tokens)
         from ppl.llm.serving_tpu_torch.generator import LLMGenerator
         from ppl.llm.serving_tpu_torch.models import llama
         from ppl.llm.serving_tpu_torch.ops import attention as attn_ops
@@ -1389,7 +1494,8 @@ def main():
         from ppl.llm.serving_tpu_torch.ops import sampling
         from ppl.llm.serving_tpu_torch.ops.kernels import _build
         from ppl.llm.serving_tpu_torch.request import Request
-        from ppl.llm.serving_tpu_torch.resources import create_engine
+        from ppl.llm.serving_tpu_torch.resources import (create_engine,
+                                                         kv_pool_tokens)
         from ppl.llm.serving_tpu_torch.tokenizer.factory import ByteTokenizer
     except ImportError as e:
         log(f"FAIL: run chip_smoke.py from the root of a checkout ({e})")
@@ -1405,7 +1511,7 @@ def main():
                 kv=kv_cache, samp=sampling,
                 ModelConfig=port_config.ModelConfig,
                 create_engine=create_engine,
-                compute_kv=compute_kv_cache_max_tokens,
+                kv_pool_tokens=kv_pool_tokens,
                 LocalConnection=LocalConnection, LLMGenerator=LLMGenerator,
                 Request=Request, ByteTokenizer=ByteTokenizer)
     t_start = time.perf_counter()
@@ -1421,9 +1527,12 @@ def main():
         log(f"[build] {len(paths)} libraries in "
             f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
         for src in _build.SOURCES:
+            fn = "?"
             for line in _build.ptxas_report(src).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {src}: {line.strip()}")
+                if "Compiling entry" in line:
+                    fn = kernel_name(line.split("'")[1])
+                elif "registers" in line or "spill" in line:
+                    log(f"[build] {src} {fn}: {line.strip()}")
         tensor_core_check()
 
         timer = Timer(torch)
@@ -1589,7 +1698,8 @@ def main():
             max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
-            case=c["case"], n_cases=len(cases)))
+            case=c["case"], n_cases=len(cases),
+            **({"splits": c["splits"]} if "splits" in c else {})))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

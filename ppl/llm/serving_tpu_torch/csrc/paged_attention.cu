@@ -16,9 +16,9 @@
 // group scales hd/8 lanes later. The Pallas kernels dequantize a page
 // with a one-hot matmul in bf16; here each 16-byte load of 16 int8 lanes
 // takes its two group scales with one 4-byte load and is dequantized on
-// its way into shared memory: in f32 for K1 and K2's f32 body (int8 x
-// bf16 is exact in f32), rounded once to bf16 for K2's tensor-core body
-// (the Pallas body's bf16 product), so the rest of each kernel is the
+// its way into shared memory: in f32 for the f32 bodies (int8 x bf16 is
+// exact in f32), rounded once to bf16 for the tensor-core bodies (the
+// Pallas body's bf16 product), so the rest of each kernel is the
 // same for every cache type. An int8 page moves half the bytes of a bf16
 // one, plus 1/4 of that again in scales.
 //
@@ -31,24 +31,42 @@
 // byte once), and in practice bound by re-reading K/V once per q block
 // and by the latency of each chunk's loads.
 //
-// Designs (K1 is the first one, simple and correct, not yet fast):
-// - K1: one CTA per (row, kv head). The CTA walks the row's page table in
-//   chunks of CH cached tokens; each chunk's K|V rows are read with 16-byte
-//   vector loads into shared memory as f32, the G query heads' scores go to
-//   shared memory, an fp32 online softmax (m, l) per head rescales the
-//   accumulators, which each thread keeps in registers for its fixed
-//   (head, dim) outputs. The current token's fresh k/v joins last as the
-//   self-term. q is scaled by hd^-0.5 before both the page dots and the
-//   self dot, as the Pallas kernel does. Rows with ctx == 0 write zeros.
-//   Block-tail mode (a multi-step decode block that writes the cache once
-//   at its end): the cache is tail_len more tokens behind, so the page
-//   walk covers ctx - 1 - tail_len tokens, and rows j < tail_len of the
-//   block's dense side buffer [L, B, KVH, J, 2*shd] (int8 rows with their
-//   own scale rows [L, B, J, scale_lanes]) join as one more chunk before
-//   the self-term. J <= CH, so the tail is one chunk through the same
-//   load_kv_chunk path as the pages (a fresh slab starting at position 0).
-//   Nothing splits the context across CTAs yet (split-K is a later PR),
-//   so a small batch fills few SMs.
+// Designs:
+// - K1: the cache holds n = ctx - 1 - tail_len tokens of a row; the current
+//   token's fresh k/v joins last as the self-term, in f32 with q scaled by
+//   hd^-0.5 (unrounded), as the Pallas kernel does. Rows with ctx == 0
+//   write zeros. Block-tail mode (a multi-step decode block that writes
+//   the cache once at its end): rows j < tail_len of the block's dense
+//   side buffer [L, B, KVH, J, 2*shd] (int8 rows with their own scale
+//   rows [L, B, J, scale_lanes]), J <= 64, join as one more chunk of keys
+//   at positions n + j, before the self-term. Two bodies, chosen by q's
+//   dtype:
+//   * bf16 (every serving path): split-context (flash-decoding) attention
+//     on the tensor cores. The grid is (B, KVH, S), S chosen by the host
+//     from B*KVH, the page-table width and the SM count (a fixed S per
+//     program key, so CUDA graphs capture it): about two CTAs a SM when
+//     B*KVH is small, S = 1 when B*KVH fills the card. Split z covers
+//     whole pages of the row's n cached tokens; a split past them writes
+//     an empty partial (m = -1e30, l = 0). The A tile's 16 rows are the
+//     G <= 16 query heads of the kv head (zero rows past G), q * hd^-0.5
+//     rounded to bf16; keys are the N side of mma.sync.m16n8k16. Chunks of
+//     64 keys come through K2's loader (rows looked up from the page table
+//     before the copies, bf16 by cp.async into a second buffer while this
+//     chunk computes, int8 raw with their scale pairs and dequantized per
+//     thread to bf16); each of the 4 warps takes 16 keys of every chunk
+//     with its own online softmax in registers (scores f32, ALiBi added
+//     in f32, P rounded to bf16 for P.V, f32 sums), and the warps' states
+//     merge in warp order. With S > 1 each CTA writes its partial (m, l,
+//     acc) and the last of a row's CTAs to arrive (a counter in a zeroed
+//     workspace) merges the S partials in split order, so the bits do not
+//     depend on which CTA finishes first; the tail chunk is split S-1's
+//     last chunk; the finishing CTA adds the self-term.
+//   * f32 (the step checks in f32): the first SIMT design, one CTA per
+//     (row, kv head) walking the pages in chunks of CH tokens read as f32
+//     into shared memory, the G heads' scores in shared memory, an f32
+//     online softmax per head and per-thread (head, dim) accumulators; the
+//     tail is one more chunk through load_kv_chunk. TF32 tensor cores
+//     would break its 2e-5 tolerance.
 // - K2: one CTA per (prefill row, q block, kv head); a q block is
 //   QB = 64 / G positions so the CTA holds 64 query rows (position,
 //   head), row r = i*G + g. Keys walk up to the causal bound
@@ -90,7 +108,7 @@
 //   K2's key at c0 + t. The bias is a separate f32 multiply and add
 //   (__fmul_rn/__fadd_rn, never contracted into an fma), as the plain
 //   version computes it.
-// K1 uses no tensor cores, TMA or cp.async pipelining yet: later PRs.
+// Neither uses TMA or wgmma yet: later PRs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -108,32 +126,17 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// 16 bytes -> floats (4 for f32, 8 for bf16)
+// 16 bytes -> floats (4 for f32, 16 for int8)
 template <typename T> struct Vec16;
 template <> struct Vec16<float> {
   static constexpr int N = 4;
   __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
     o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
     o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* o) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[2 * i] = __uint_as_float(w[i] << 16);
-      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
   }
 };
 template <> struct Vec16<int8_t> {
@@ -234,7 +237,7 @@ __device__ __forceinline__ void load_kv_chunk(
   }
 }
 
-// ---------------------------------------------------------------- K1 decode
+// ------------------------------------------------------ K1 f32 body (SIMT)
 
 constexpr int kDecMaxOut = 8;  // per-thread outputs: G*hd <= 8 * 256
 
@@ -578,6 +581,95 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The key-chunk loader of both tensor-core bodies (K1 and K2), over the
+// TcTile layout at `base`. A chunk's 64 key rows (and int8 scale rows)
+// are looked up first, one key a thread (`set`, into one of two plan
+// slots), so the copies wait on no page-table load; `issue` then copies
+// the chunk's 16-byte vectors by cp.async, keys without a row as zeros:
+// bf16 rows straight into K|V buffer `buf`, int8 rows (16 lanes) and
+// their two group scales into this thread's own staging slots, which
+// `dequant` turns into bf16 in K|V buffer 0 (int8 x bf16 scale rounded
+// once, as the Pallas body's bf16 product) once they have landed.
+template <typename TC, int HD>
+struct TcChunk {
+  using Tile = TcTile<TC, HD>;
+  uint8_t* base;
+  int shd;
+  const void* dummy;  // a valid address for the zero-byte copies
+
+  __device__ uint8_t* kv(int buf, int half) const {
+    return base + (2 * buf + half) * Tile::kBuf;
+  }
+  __device__ uint8_t* st_raw() const { return base + 2 * Tile::kKvBufs * Tile::kBuf; }
+  __device__ uint32_t* st_scale() const {
+    return reinterpret_cast<uint32_t*>(st_raw() + Tile::kVecs * 16);
+  }
+  __device__ const TC** rows() const {
+    return reinterpret_cast<const TC**>(st_raw() + Tile::kStage);
+  }
+  __device__ const __nv_bfloat16** srows() const {
+    return reinterpret_cast<const __nv_bfloat16**>(rows() + 2 * kChunk);
+  }
+  __device__ void set(int slot, int t, const TC* row, const __nv_bfloat16* srow) const {
+    rows()[slot * kChunk + t] = row;
+    if constexpr (Tile::kInt8) srows()[slot * kChunk + t] = srow;
+  }
+  __device__ void issue(int slot, int buf) const {
+    const int tid = threadIdx.x;
+    if constexpr (!Tile::kInt8) {
+      constexpr int kVec = HD / 8;          // vectors per half row
+#pragma unroll
+      for (int j = 0; j < kChunk * 2 * kVec / kTcThreads; ++j) {
+        const int e = tid + j * kTcThreads;
+        const int t = e / (2 * kVec), v = e % (2 * kVec);
+        const int half = v / kVec, jj = v % kVec;
+        const TC* row = rows()[slot * kChunk + t];
+        cp_async16(smem_u32(kv(buf, half) + t * Tile::kStride + jj * 16),
+                   row != nullptr ? (const void*)(row + half * shd + jj * 8) : dummy,
+                   row != nullptr ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < Tile::kVecs / kTcThreads; ++j) {
+        const int e = tid + j * kTcThreads;
+        const int t = e / (HD / 8), v = e % (HD / 8);
+        const int half = v / (HD / 16), jj = v % (HD / 16);
+        const TC* row = rows()[slot * kChunk + t];
+        const __nv_bfloat16* srow = srows()[slot * kChunk + t];
+        const bool ok = row != nullptr;
+        cp_async16(smem_u32(st_raw() + e * 16),
+                   ok ? (const void*)(row + half * shd + jj * 16) : dummy, ok ? 16 : 0);
+        cp_async4(smem_u32(st_scale() + e),
+                  ok ? (const void*)(srow + half * (HD / kKvGroup) + 2 * jj) : dummy,
+                  ok ? 4 : 0);
+      }
+    }
+  }
+  __device__ void dequant() const {
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < Tile::kVecs / kTcThreads; ++j) {
+      const int e = tid + j * kTcThreads;
+      const int t = e / (HD / 8), v = e % (HD / 8);
+      const int half = v / (HD / 16), jj = v % (HD / 16);
+      float x[16];
+      Vec16<int8_t>::unpack(*reinterpret_cast<const uint4*>(st_raw() + e * 16), x);
+      const uint32_t sw = st_scale()[e];
+      const float s0 = __uint_as_float(sw << 16);
+      const float s1 = __uint_as_float(sw & 0xffff0000u);
+      uint32_t pk[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float sc = i < 4 ? s0 : s1;
+        pk[i] = pack_bf16(x[2 * i] * sc, x[2 * i + 1] * sc);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(kv(0, half) + t * Tile::kStride + jj * 32);
+      dst[0] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
+      dst[1] = make_uint4(pk[4], pk[5], pk[6], pk[7]);
+    }
+  }
+};
+
 template <typename TC, int HD>
 __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const TC* __restrict__ cache,
@@ -660,20 +752,11 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
   const int* pt = page_table + (size_t)b * P;
   const int kv_hi = min(ctx, q0 + QB);      // causal bound of the block
   const int nch = (kv_hi + kChunk - 1) / kChunk;
+  const TcChunk<TC, HD> ld{tc_smem, shd, cache};
 
-  uint8_t* st_raw = tc_smem + 2 * Tile::kKvBufs * Tile::kBuf;
-  uint32_t* st_scale = reinterpret_cast<uint32_t*>(st_raw + Tile::kVecs * 16);
-  const TC** plan_row = reinterpret_cast<const TC**>(st_raw + Tile::kStage);
-  const __nv_bfloat16** plan_srow =
-      reinterpret_cast<const __nv_bfloat16**>(plan_row + 2 * kChunk);
-  auto kv_smem = [&](int buf, int half) {
-    return tc_smem + (2 * buf + half) * Tile::kBuf;
-  };
-
-  // The k|v row (and int8 scale row, this head's lanes) of each key of the
-  // chunk at c0, one key a thread, into plan slot `slot`: the fresh slab's
-  // row pos - start when pos >= start, else the cache row of its slot;
-  // null past kv_hi. The copies then read their addresses from here.
+  // The k|v row (and int8 scale row) of each key of the chunk at c0 into
+  // plan slot `slot`: the fresh slab's row pos - start when pos >= start,
+  // else the cache row of its slot; null past kv_hi
   auto plan = [&](int slot, int c0) {
     if (tid < kChunk) {
       const int pos = c0 + tid;
@@ -690,68 +773,7 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
           srow = cs.rows + (size_t)slot_id * cs.lanes + cs.head_off;
         }
       }
-      plan_row[slot * kChunk + tid] = row;
-      if constexpr (kInt8) plan_srow[slot * kChunk + tid] = srow;
-    }
-  };
-  // The chunk's 16-byte vectors by cp.async, keys past kv_hi as zeros:
-  // bf16 rows straight into K|V buffer buf; int8 rows (16 lanes) and
-  // their two group scales into this thread's own staging slots
-  auto issue = [&](int slot, int buf) {
-    if constexpr (!kInt8) {
-      constexpr int kVec = HD / 8;          // vectors per half row
-#pragma unroll
-      for (int j = 0; j < kChunk * 2 * kVec / kTcThreads; ++j) {
-        const int e = tid + j * kTcThreads;
-        const int t = e / (2 * kVec), v = e % (2 * kVec);
-        const int half = v / kVec, jj = v % kVec;
-        const TC* row = plan_row[slot * kChunk + t];
-        cp_async16(smem_u32(kv_smem(buf, half) + t * Tile::kStride + jj * 16),
-                   row != nullptr ? row + half * shd + jj * 8 : cache,
-                   row != nullptr ? 16 : 0);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < Tile::kVecs / kTcThreads; ++j) {
-        const int e = tid + j * kTcThreads;
-        const int t = e / (HD / 8), v = e % (HD / 8);
-        const int half = v / (HD / 16), jj = v % (HD / 16);
-        const TC* row = plan_row[slot * kChunk + t];
-        const __nv_bfloat16* srow = plan_srow[slot * kChunk + t];
-        const bool ok = row != nullptr;
-        cp_async16(smem_u32(st_raw + e * 16),
-                   ok ? (const void*)(row + half * shd + jj * 16) : (const void*)cache,
-                   ok ? 16 : 0);
-        cp_async4(smem_u32(st_scale + e),
-                  ok ? (const void*)(srow + half * (HD / kKvGroup) + 2 * jj)
-                     : (const void*)cache,
-                  ok ? 4 : 0);
-      }
-    }
-  };
-  // int8: this thread's staged vectors dequantized to bf16 (int8 x bf16
-  // scale, rounded once, as the Pallas body's bf16 product) into K|V
-  // buffer 0
-  auto dequant = [&]() {
-#pragma unroll
-    for (int j = 0; j < Tile::kVecs / kTcThreads; ++j) {
-      const int e = tid + j * kTcThreads;
-      const int t = e / (HD / 8), v = e % (HD / 8);
-      const int half = v / (HD / 16), jj = v % (HD / 16);
-      float x[16];
-      Vec16<int8_t>::unpack(*reinterpret_cast<const uint4*>(st_raw + e * 16), x);
-      const uint32_t sw = st_scale[e];
-      const float s0 = __uint_as_float(sw << 16);
-      const float s1 = __uint_as_float(sw & 0xffff0000u);
-      uint32_t pk[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float sc = i < 4 ? s0 : s1;
-        pk[i] = pack_bf16(x[2 * i] * sc, x[2 * i + 1] * sc);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(kv_smem(0, half) + t * Tile::kStride + jj * 32);
-      dst[0] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      dst[1] = make_uint4(pk[4], pk[5], pk[6], pk[7]);
+      ld.set(slot, tid, row, srow);
     }
   };
 
@@ -764,11 +786,11 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
 
   plan(0, 0);
   __syncthreads();
-  issue(0, 0);
+  ld.issue(0, 0);
   cp_async_commit();
   if constexpr (kInt8) {
     cp_async_wait<0>();
-    dequant();
+    ld.dequant();
   }
   if (nch > 1) plan(1, kChunk);
   for (int ci = 0; ci < nch; ++ci) {
@@ -776,14 +798,14 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
     const int buf = kInt8 ? 0 : ci & 1;
     const bool next = ci + 1 < nch;
     __syncthreads();                        // chunk ci and the next plan in place
-    if (next) issue((ci + 1) & 1, buf ^ 1);
+    if (next) ld.issue((ci + 1) & 1, buf ^ 1);
     cp_async_commit();
     if constexpr (!kInt8) {
       cp_async_wait<1>();
       __syncthreads();
     }
-    const uint8_t* ks = kv_smem(buf, 0);
-    const uint8_t* vs = kv_smem(buf, 1);
+    const uint8_t* ks = ld.kv(buf, 0);
+    const uint8_t* vs = ld.kv(buf, 1);
     // live 16-key groups for this warp: below kv_hi and at or before its
     // rows' last position (warp-uniform); the rest of the chunk is masked
     const int kg_end = min(kv_hi - 1, wpos_hi) - c0;
@@ -894,7 +916,7 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
       if (next) {
         __syncthreads();                    // every warp is done with chunk ci
         cp_async_wait<0>();
-        dequant();
+        ld.dequant();
       }
     }
   }
@@ -912,6 +934,363 @@ __global__ void __launch_bounds__(kTcThreads) paged_prefill_tc_kernel(
     for (int dt = 0; dt < HD / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(out + orow[row] + 8 * dt + 2 * tig) =
           __floats2bfloat162_rn(o[dt][2 * row] / den, o[dt][2 * row + 1] / den);
+  }
+}
+
+// ------------------------------------------------- K1 tensor-core bf16 body
+
+// Shared memory of K1's tensor-core body: the TcTile chunk buffers, then
+// the A tile of q (16 rows of HD bf16, padded as the key rows are). After
+// the key loop the chunk buffers hold the four warps' softmax states (m,
+// l, acc for 16 rows) and the CTA's merged state.
+template <typename TC, int HD>
+struct DecTile {
+  static constexpr int kWarps = kTcThreads / 32;
+  static constexpr int kQ = TcTile<TC, HD>::kSmem;        // q tile offset
+  static constexpr int kStates = (kWarps + 1) * 16 * (HD + 2) * (int)sizeof(float);
+  static constexpr int kLoop = kQ + 16 * TcTile<TC, HD>::kStride;
+  static constexpr int kSmem = kLoop > kStates ? kLoop : kStates;
+};
+
+// One CTA per (row b, kv head h, split z); the A tile's rows are the G
+// query heads of h (rows >= G are zero and masked). Split z covers whole
+// pages of the row's n cached tokens (pages [z*pps, (z+1)*pps), pps =
+// ceil(ceil(n/ps) / S)); the tail rows join split S-1 as its last chunk.
+// Warp w takes keys [16w, 16w+16) of every 64-key chunk and keeps its own
+// online softmax; the warps' states merge in warp order. With S == 1 the
+// CTA finishes the row; otherwise it writes its partial (acc [G][HD], m
+// [G], l [G]) to `part` and the last of the row's S CTAs to arrive (a
+// counter in `done`, zeroed by the caller) merges the S partials in split
+// order. The finishing CTA adds the self-term and writes the row. Three
+// CTAs fit a SM at every head dim (registers and shared memory), so the
+// 7B and 13B grids at B = 8 (256 and 320 CTAs) run in one wave.
+template <typename TC, int HD>
+__global__ void __launch_bounds__(kTcThreads, 3) paged_decode_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const TC* __restrict__ cache,
+    const __nv_bfloat16* __restrict__ scale, int scale_lanes,
+    const int* __restrict__ page_table, const int* __restrict__ ctx,
+    const __nv_bfloat16* __restrict__ fk, const __nv_bfloat16* __restrict__ fv,
+    __nv_bfloat16* __restrict__ out, int Hq, int KVH, int shd, int P, int ps,
+    long long LS, long long lbase, float sm_scale, const TC* __restrict__ tkv,
+    const __nv_bfloat16* __restrict__ tscale, const int* __restrict__ tlen,
+    int J, int layer, const float* __restrict__ slopes, float* __restrict__ part,
+    int* __restrict__ done) {
+  using Tile = TcTile<TC, HD>;
+  constexpr bool kInt8 = Tile::kInt8;
+  constexpr int kWarps = DecTile<TC, HD>::kWarps;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  __shared__ int last_split;
+  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
+  const int B = gridDim.x, S = gridDim.z;
+  const int G = Hq / KVH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int ctx_t = ctx[b];
+  __nv_bfloat16* orow = out + ((size_t)b * Hq + (size_t)h * G) * HD;
+  if (ctx_t <= 0) {                         // a padding row: zeros, once
+    if (z == 0)
+      for (int e = tid; e < G * HD / 8; e += kTcThreads)
+        reinterpret_cast<uint4*>(orow)[e] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  // the tail rows of the block side buffer (0 outside block-tail mode);
+  // the cache holds the n tokens before them, the current one is the
+  // self-term
+  const int tlen_raw = tkv != nullptr ? tlen[0] : 0;
+  const int tl = tkv != nullptr ? max(0, min(tlen_raw, J)) : 0;
+  const int n = max(ctx_t - 1 - tlen_raw, 0);
+  const int npages = (n + ps - 1) / ps;
+  const int pps = (npages + S - 1) / S;
+  const int k0 = min(z * pps, npages) * ps;
+  const int k1 = min(n, (z + 1) * pps * ps);
+  const int n_page_ch = k1 > k0 ? (k1 - k0 + kChunk - 1) / kChunk : 0;
+  const int nch = n_page_ch + (z == S - 1 && tl > 0 ? 1 : 0);
+
+  const float* sl = slopes != nullptr ? slopes + (size_t)h * G : nullptr;
+  bool inq[2];
+  float slope[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = g + 8 * j;
+    inq[j] = r < G;
+    slope[j] = sl != nullptr && r < G ? sl[r] : 0.f;
+  }
+  // the A tile: q * hd^-0.5 rounded to bf16, as the Pallas body scales and
+  // rounds q before its dot; rows past G zero. Its fragments come by
+  // ldmatrix for every chunk, which keeps registers for three CTAs a SM.
+  const __nv_bfloat16* qh = q + ((size_t)b * Hq + (size_t)h * G) * HD;
+  uint8_t* qs = tc_smem + DecTile<TC, HD>::kQ;
+  for (int e = tid; e < 16 * HD / 2; e += kTcThreads) {
+    const int r = e / (HD / 2), c = 2 * (e - r * (HD / 2));
+    uint32_t v = 0;
+    if (r < G) {
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(qh + r * HD + c);
+      v = pack_bf16(__fmul_rn(__low2float(x), sm_scale), __fmul_rn(__high2float(x), sm_scale));
+    }
+    *reinterpret_cast<uint32_t*>(qs + r * Tile::kStride + c * 2) = v;
+  }
+
+  const int lanes = 2 * shd;
+  const TC* cache_h = cache + (size_t)h * LS * lanes;
+  const int head_off = h * 2 * (HD / kKvGroup);
+  const int* pt = page_table + (size_t)b * P;
+  // this (layer, row, head)'s tail rows and their scale rows
+  const TC* trow = tkv == nullptr ? nullptr
+      : tkv + (((size_t)layer * B + b) * KVH + h) * (size_t)J * lanes;
+  const __nv_bfloat16* tsrow = tscale == nullptr ? nullptr
+      : tscale + ((size_t)layer * B + b) * J * scale_lanes + head_off;
+  const TcChunk<TC, HD> ld{tc_smem, shd, cache};
+
+  // chunk ci's first key position and its key count
+  auto chunk_at = [&](int ci, int& kpos0, int& cn) {
+    if (ci < n_page_ch) {
+      kpos0 = k0 + ci * kChunk;
+      cn = min(kChunk, k1 - kpos0);
+    } else {                                // the tail rows, after the n cached
+      kpos0 = n;
+      cn = tl;
+    }
+  };
+  // the page-table entry of this thread's key of page chunk ci (0 when it
+  // has none): loaded a chunk ahead of `plan`, which waits on it
+  auto page_of = [&](int ci) {
+    if (tid >= kChunk || ci >= n_page_ch) return 0;
+    const int pos = k0 + ci * kChunk + tid;
+    return pos < k1 ? pt[min(pos / ps, P - 1)] : 0;
+  };
+  auto plan = [&](int slot, int ci, int page) {
+    if (tid < kChunk) {
+      int kpos0, cn;
+      chunk_at(ci, kpos0, cn);
+      const TC* row = nullptr;
+      const __nv_bfloat16* srow = nullptr;
+      if (tid < cn) {
+        if (ci < n_page_ch) {
+          const int pos = kpos0 + tid;
+          const long long slot_id = lbase + (long long)page * ps + pos % ps;
+          row = cache_h + (size_t)slot_id * lanes;
+          if constexpr (kInt8) srow = scale + (size_t)slot_id * scale_lanes + head_off;
+        } else {
+          row = trow + (size_t)tid * lanes;
+          if constexpr (kInt8) srow = tsrow + (size_t)tid * scale_lanes;
+        }
+      }
+      ld.set(slot, tid, row, srow);
+    }
+  };
+
+  // this warp's online softmax over its keys: rows g and g + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[dt][r] = 0.f;
+
+  if (nch > 0) {
+    const int page1 = page_of(1);
+    plan(0, 0, page_of(0));
+    __syncthreads();
+    ld.issue(0, 0);
+    cp_async_commit();
+    if (nch > 1) plan(1, 1, page1);
+    if constexpr (kInt8) {
+      cp_async_wait<0>();
+      ld.dequant();
+    }
+  }
+  const int kw = 16 * warp;                 // this warp's first key of a chunk
+  for (int ci = 0; ci < nch; ++ci) {
+    const int buf = kInt8 ? 0 : ci & 1;
+    const bool next = ci + 1 < nch;
+    __syncthreads();                        // chunk ci and the next plan in place
+    if (next) ld.issue((ci + 1) & 1, buf ^ 1);
+    cp_async_commit();
+    const int page2 = page_of(ci + 2);
+    if constexpr (!kInt8) {
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    int kpos0, cn;
+    chunk_at(ci, kpos0, cn);
+    if (kw < cn) {                          // warp-uniform
+      const uint8_t* ks = ld.kv(buf, 0);
+      const uint8_t* vs = ld.kv(buf, 1);
+      // S = q k^T over the warp's 16 keys: s[nt] holds keys kw + 8*nt ..
+      float s[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[nt][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qa[4], kf[4];
+        ldmatrix_x4(qa, smem_u32(qs + (lane & 15) * Tile::kStride +
+                                 (16 * kk + (lane >> 4) * 8) * 2));
+        const int key = kw + (lane >> 4) * 8 + (lane & 7);
+        const int dim = 16 * kk + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(kf, smem_u32(ks + key * Tile::kStride + dim * 2));
+        mma_bf16(s[0], qa, kf[0], kf[1]);
+        mma_bf16(s[1], qa, kf[2], kf[3]);
+      }
+      // ALiBi (a separate f32 multiply and add), the mask, the online softmax
+      uint32_t live = 0u;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = j >> 1;
+          const int t = kw + 8 * nt + 2 * tig + (j & 1);
+          float v = s[nt][j];
+          if (sl != nullptr) v = alibi_add(v, slope[row], kpos0 + t);
+          const bool ok = inq[row] && t < cn;
+          live |= (ok ? 1u : 0u) << (4 * nt + j);
+          s[nt][j] = ok ? v : kNegInf;
+          mx[row] = fmaxf(mx[row], s[nt][j]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+        const float m_new = fmaxf(m[row], mx[row]);
+        alpha[row] = expf(m[row] - m_new);
+        m[row] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = (live >> (4 * nt + j)) & 1u ? expf(s[nt][j] - m[j >> 1]) : 0.f;
+          s[nt][j] = p;
+          rs[j >> 1] += p;
+        }
+#pragma unroll
+      for (int row = 0; row < 2; ++row) l[row] = l[row] * alpha[row] + rs[row];
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        o[dt][0] *= alpha[0];
+        o[dt][1] *= alpha[0];
+        o[dt][2] *= alpha[1];
+        o[dt][3] *= alpha[1];
+      }
+      // O += P V: P rounded to bf16 (the Pallas body's p_exp.astype) as
+      // the A fragment, V through ldmatrix.trans
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vf[4];
+        const int key = kw + ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int dim = 16 * dp + (lane >> 4) * 8;
+        ldmatrix_x4_trans(vf, smem_u32(vs + key * Tile::kStride + dim * 2));
+        mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    if (ci + 2 < nch) plan(ci & 1, ci + 2, page2);
+    if constexpr (kInt8) {
+      if (next) {
+        __syncthreads();                    // every warp is done with chunk ci
+        cp_async_wait<0>();
+        ld.dequant();
+      }
+    }
+  }
+
+  // the warps' states, then their merge in warp order, over the chunk
+  // buffers (every warp is past its last chunk, every copy has landed)
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
+  }
+  float* w_m = reinterpret_cast<float*>(tc_smem);   // [kWarps][16]
+  float* w_l = w_m + kWarps * 16;                   // [kWarps][16]
+  float* w_acc = w_l + kWarps * 16;                 // [kWarps][16][HD]
+  float* st_m = w_acc + kWarps * 16 * HD;           // [16]: the CTA's state
+  float* st_l = st_m + 16;
+  float* st_acc = st_l + 16;                        // [16][HD]
+  __syncthreads();
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const int r = warp * 16 + g + 8 * row;
+    if (tig == 0) {
+      w_m[r] = m[row];
+      w_l[r] = l[row];
+    }
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      w_acc[r * HD + 8 * dt + 2 * tig] = o[dt][2 * row];
+      w_acc[r * HD + 8 * dt + 2 * tig + 1] = o[dt][2 * row + 1];
+    }
+  }
+  __syncthreads();
+  // merge `ns` states (m at sm + i*sstride, l at sl_ + i*sstride, acc at
+  // sa + i*astride), in order, into st_*; rows < G
+  auto merge = [&](int ns, const float* sm, const float* sl_, const float* sa,
+                   int sstride, int astride, bool global) {
+    auto rd = [&](const float* p) { return global ? __ldcg(p) : *p; };
+    for (int e = tid; e < G * HD; e += kTcThreads) {
+      const int r = e / HD, d = e - r * HD;
+      float mm = kNegInf;
+      for (int i = 0; i < ns; ++i) mm = fmaxf(mm, rd(sm + i * sstride + r));
+      float a = 0.f, ll = 0.f;
+      for (int i = 0; i < ns; ++i) {
+        const float w = expf(rd(sm + i * sstride + r) - mm);
+        a = fmaf(rd(sa + (size_t)i * astride + e), w, a);
+        ll = fmaf(rd(sl_ + i * sstride + r), w, ll);
+      }
+      st_acc[e] = a;
+      if (d == 0) {
+        st_m[r] = mm;
+        st_l[r] = ll;
+      }
+    }
+  };
+  merge(kWarps, w_m, w_l, w_acc, 16, 16 * HD, false);
+  __syncthreads();
+
+  if (S > 1) {
+    // this split's partial, then the last of the row's splits merges them
+    const int pstride = G * (HD + 2);
+    float* prow = part + ((size_t)b * KVH + h) * S * pstride;
+    float* pz = prow + (size_t)z * pstride;
+    for (int e = tid; e < G * HD; e += kTcThreads) pz[e] = st_acc[e];
+    for (int r = tid; r < G; r += kTcThreads) {
+      pz[G * HD + r] = st_m[r];
+      pz[G * HD + G + r] = st_l[r];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_split = atomicAdd(done + (size_t)b * KVH + h, 1) == S - 1;
+    __syncthreads();
+    if (!last_split) return;
+    __threadfence();
+    merge(S, prow + G * HD, prow + G * HD + G, prow, pstride, pstride, true);
+    __syncthreads();
+  }
+
+  // the self-term (the current token's k/v, not yet in the cache) in f32
+  // with the unrounded q * hd^-0.5, at position n + tail_len
+  const __nv_bfloat16* fkr = fk + ((size_t)b * KVH + h) * HD;
+  const __nv_bfloat16* fvr = fv + ((size_t)b * KVH + h) * HD;
+  for (int r = warp; r < G; r += kWarps) {
+    float s = 0.f;
+    for (int d = lane; d < HD; d += 32)
+      s = fmaf(__bfloat162float(qh[r * HD + d]) * sm_scale, __bfloat162float(fkr[d]), s);
+    s = warp_sum(s);
+    if (sl != nullptr) s = alibi_add(s, sl[r], n + tlen_raw);
+    const float m_old = st_m[r];
+    const float m_new = fmaxf(m_old, s);
+    const float alpha = expf(m_old - m_new);
+    const float p = expf(s - m_new);
+    const float den = fmaxf(st_l[r] * alpha + p, 1e-30f);
+    for (int d = lane; d < HD; d += 32)
+      orow[r * HD + d] = __float2bfloat16(
+          (st_acc[r * HD + d] * alpha + p * __bfloat162float(fvr[d])) / den);
   }
 }
 
@@ -947,6 +1326,46 @@ int launch_decode(const Args& a, const int* ctx, const void* fk,
       a.ps, a.LS, a.lbase, CH, a.sm_scale, (const TC*)tkv, tscale, tlen, J,
       layer, a.slopes);
   return (int)cudaGetLastError();
+}
+
+// K1's tensor-core body (bf16 q) on a (B, KVH, splits) grid
+template <typename TC, int HD>
+int launch_decode_tc(const Args& a, const int* ctx, const void* fk,
+                     const void* fv, int B, const void* tkv,
+                     const __nv_bfloat16* tscale, const int* tlen, int J,
+                     int layer, int splits, float* part, int* done) {
+  constexpr size_t smem = DecTile<TC, HD>::kSmem;
+  const cudaError_t err = allow_smem<paged_decode_tc_kernel<TC, HD>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B, a.KVH, splits);
+  paged_decode_tc_kernel<TC, HD><<<grid, kTcThreads, smem, a.stream>>>(
+      (const __nv_bfloat16*)a.q, (const TC*)a.cache, a.scale, a.scale_lanes,
+      a.pt, ctx, (const __nv_bfloat16*)fk, (const __nv_bfloat16*)fv,
+      (__nv_bfloat16*)a.out, a.Hq, a.KVH, a.shd, a.P, a.ps, a.LS, a.lbase,
+      a.sm_scale, (const TC*)tkv, tscale, tlen, J, layer, a.slopes, part,
+      done);
+  return (int)cudaGetLastError();
+}
+
+template <typename TC>
+int launch_decode_tc_by_hd(const Args& a, const int* ctx, const void* fk,
+                           const void* fv, int B, const void* tkv,
+                           const __nv_bfloat16* tscale, const int* tlen,
+                           int J, int layer, int splits, float* part,
+                           int* done) {
+#define PPL_DECODE_CASE(HDV)                                                  \
+  case HDV:                                                                   \
+    return launch_decode_tc<TC, HDV>(a, ctx, fk, fv, B, tkv, tscale, tlen, J, \
+                                     layer, splits, part, done);
+  switch (a.hd) {
+    PPL_DECODE_CASE(16)
+    PPL_DECODE_CASE(32)
+    PPL_DECODE_CASE(64)
+    PPL_DECODE_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PPL_DECODE_CASE
 }
 
 template <typename T, typename TC, int HD>
@@ -1026,7 +1445,9 @@ struct LaunchTc {
 // takes the side buffer tail_kv (and its scale rows tail_scale when int8),
 // J rows per (layer, row, head), and the device count tail_len; tail_kv
 // null is the plain deferred mode. slopes: ALiBi slopes f32 [Hq] on the
-// device, or null for none.
+// device, or null for none. Decode with bf16 q splits each row's context
+// over `splits` CTAs; with splits > 1 it needs `part`, f32 [B*KVH*splits*
+// G*(hd+2)], and `done`, int32 [B*KVH] zeroed (f32 q ignores all three).
 extern "C" {
 
 int ppl_paged_decode_attention(int dtype, int quant, const void* q,
@@ -1039,18 +1460,27 @@ int ppl_paged_decode_attention(int dtype, int quant, const void* q,
                                long long num_slots, int chunk, float sm_scale,
                                const void* tail_kv, const void* tail_scale,
                                const int* tail_len, int J,
-                               const float* slopes, void* stream) {
+                               const float* slopes, int splits, void* part,
+                               void* done, void* stream) {
   const Args a{q, cache, (const __nv_bfloat16*)scale, scale_lanes, page_table,
                out, Hq, KVH, hd, shd, P, page_size, ls_rows,
                (long long)layer * num_slots, sm_scale, slopes,
                (cudaStream_t)stream};
   const __nv_bfloat16* ts = (const __nv_bfloat16*)tail_scale;
-#define PPL_DECODE(T, TC) \
-  launch_decode<T, TC>(a, ctx, fresh_k, fresh_v, B, chunk, tail_kv, ts, tail_len, J, layer)
-  if (dtype == 0) return quant ? PPL_DECODE(float, int8_t) : PPL_DECODE(float, float);
-  return quant ? PPL_DECODE(__nv_bfloat16, int8_t)
-               : PPL_DECODE(__nv_bfloat16, __nv_bfloat16);
-#undef PPL_DECODE
+  if (dtype == 0)
+    return quant ? launch_decode<float, int8_t>(a, ctx, fresh_k, fresh_v, B, chunk,
+                                                tail_kv, ts, tail_len, J, layer)
+                 : launch_decode<float, float>(a, ctx, fresh_k, fresh_v, B, chunk,
+                                               tail_kv, ts, tail_len, J, layer);
+  if (splits < 1 || (splits > 1 && (part == nullptr || done == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return quant
+      ? launch_decode_tc_by_hd<int8_t>(a, ctx, fresh_k, fresh_v, B, tail_kv, ts,
+                                       tail_len, J, layer, splits, (float*)part,
+                                       (int*)done)
+      : launch_decode_tc_by_hd<__nv_bfloat16>(a, ctx, fresh_k, fresh_v, B, tail_kv,
+                                              ts, tail_len, J, layer, splits,
+                                              (float*)part, (int*)done);
 }
 
 int ppl_paged_prefill_attention(int dtype, int quant, const void* q,

@@ -10,7 +10,9 @@ and ``prompt_row_cap``. The device parts are PyTorch's own:
   cont)``, the JAX package's one jitted program per bucket. On the CPU it
   runs eagerly; on cuda its first visit runs eagerly (the warm-up: kernel
   libraries, cuBLAS handles), its second captures it as one CUDA graph,
-  and every later visit replays that graph (:class:`_Runner`),
+  and every later visit replays that graph (:class:`_Runner`). All of an
+  engine's graphs share one memory pool, so together they hold about the
+  largest one's working set,
 - the KV cache (with its bf16 scale rows under int8 KV) and the penalty
   count map are preallocated once and every step updates them in place
   (the JAX package donates them instead); none is reallocated after a
@@ -23,13 +25,22 @@ and ``prompt_row_cap``. The device parts are PyTorch's own:
   from (seed, dispatch), drawn for the whole block before it runs, where
   the JAX package folds the dispatch and step into its PRNG key.
 
-AOT, prewarm and bucket-grid validation are not ported: a CUDA graph is
-captured at a key's second visit instead.
+``validate_bucket_grid`` and ``prewarm`` are the JAX package's decisions
+over the port's own warm-up of a key: its eager visit and, on cuda, its
+capture, on an all-padding plan that writes only the trash page and the
+count map's trash row (restored after). A key fails when the warm-up
+runs out of device memory or its capture takes the engine's graphs past
+``graph_budget_bytes``. Once the grid is validated nothing is captured
+while serving: a key that validation did not warm up (a mixed step
+beside a smaller decode bucket, a host-fed block) runs eagerly. Without
+validation a key is captured at its second visit. The manifest
+and AOT functions are not ported: CUDA graphs take their place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import logging
 import os
 import time
@@ -99,10 +110,11 @@ class _Runner:
 
     On the CPU every visit runs ``fn`` eagerly. On cuda the first visit
     runs it eagerly; the second captures it into a CUDA graph over static
-    copies of its inputs and replays it; later visits copy their inputs
-    into those buffers and replay. A block runs once per visit: capture
-    records without executing (the penalty count map's scatter-add is not
-    idempotent). A capture failure raises.
+    copies of its inputs (unless :meth:`capture` already did, or ``lazy``
+    is off: then only :meth:`capture` does) and replays it; later visits
+    copy their inputs into those buffers and replay. A block runs once
+    per visit: capture records without executing (the penalty count map's
+    scatter-add is not idempotent). A capture failure raises.
 
     The kernel wrappers' checks and launch counters run only while the
     graph is captured, so the capture's launches are taken back off the
@@ -110,14 +122,19 @@ class _Runner:
     the graph's static outputs, which the next replay overwrites: the
     caller copies them out before it dispatches again.
 
-    ``pool_bytes`` is what the capture added to the allocator's reserved
-    device memory: the graph's private pool, held while the runner
-    lives.
+    ``pool``: a graph memory pool shared with other runners (None: a
+    private one). ``pool_bytes`` is what the capture added to the
+    allocator's reserved device memory, measured with the allocator's
+    cached free blocks released first; the pool holds it while any of
+    its graphs lives.
     """
 
-    def __init__(self, fn, device: torch.device):
+    def __init__(self, fn, device: torch.device, pool=None,
+                 lazy: bool = True):
         self.fn = fn
         self.device = device
+        self.pool = pool
+        self.lazy = lazy
         self.visits = 0
         self.replays = 0
         self.graph = None
@@ -128,10 +145,11 @@ class _Runner:
 
     def __call__(self, *args):
         self.visits += 1
-        if self.device.type != "cuda" or self.visits == 1:
-            return self.fn(*args)
         if self.graph is None:
-            self._capture(args)
+            if (self.device.type != "cuda" or self.visits == 1
+                    or not self.lazy):
+                return self.fn(*args)
+            self.capture(args)
         for dst, src in zip(self.static_in, args):
             if dst is not None:
                 dst.copy_(src, non_blocking=True)
@@ -140,12 +158,19 @@ class _Runner:
         self.replays += 1
         return self.static_out
 
-    def _capture(self, args) -> None:
+    def capture(self, args) -> None:
+        """Capture ``fn`` over static copies of ``args`` without running
+        it (cuda only)."""
         self.static_in = [None if a is None else a.clone() for a in args]
         before = kernels.launch_counts()
+        # torch.cuda.graph releases the cached blocks itself before it
+        # captures; release them first so that the growth is the graph's
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=self.pool):
             out = self.fn(*self.static_in)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         after = kernels.launch_counts()
@@ -153,21 +178,26 @@ class _Runner:
         kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
         self.graph, self.static_out = graph, out
         logger.info("captured a CUDA graph, launches per replay %s; its "
-                    "pool %d MiB; peak device memory %d MiB",
+                    "pool grew %d MiB; peak device memory %d MiB",
                     {k: n for k, n in self.launches.items() if n},
                     self.pool_bytes >> 20,
                     torch.cuda.max_memory_allocated(self.device) >> 20)
 
 
 class LLMEngine:
-    """Owns device state and runs one continuous-batching step."""
+    """Owns device state and runs one continuous-batching step.
+
+    ``graph_budget_bytes``: what the engine's CUDA graphs may hold in all
+    (0: no limit but the device's memory); a capture that takes them past
+    it fails its key in :meth:`prewarm`."""
 
     def __init__(self, model_cfg: ModelConfig, resource_cfg: ResourceConfig,
                  params: Dict[str, Any], spec: CacheSpec,
                  enable_penalty: bool = False,
                  max_batch_slots: int = 0,
                  device="cuda",
-                 rng_seed: int = 0):
+                 rng_seed: int = 0,
+                 graph_budget_bytes: int = 0):
         self.model_cfg = model_cfg
         self.resource_cfg = resource_cfg
         self.spec = spec
@@ -186,6 +216,32 @@ class LLMEngine:
                                          device=self.device)
         self.top_k_cap = resource_cfg.sampling_top_k_cap
         self._runners: Dict[Tuple, _Runner] = {}
+        # One memory pool for every capture of this engine. PyTorch lets
+        # graphs share a pool when they never replay at the same time and
+        # no graph's static outputs are read after another graph of the
+        # pool has replayed: a later capture may place its outputs in
+        # blocks that an earlier graph uses as scratch. Both hold here.
+        # Every replay is enqueued on one stream, and each reader of a
+        # static output enqueues its read right behind the replay that
+        # wrote it, before anything can dispatch again: _run copies the
+        # tokens and logprobs into fresh pinned host buffers
+        # (fetch_plan_result reads those) and clones the last step's
+        # tokens into a fresh device tensor, which is what
+        # _last_final_tokens, the fed tokens of the next dispatch and
+        # dispatch_continuation's last_dev hold; the static inputs are
+        # clones made before the capture, outside the pool.
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
+        self.graph_budget_bytes = graph_budget_bytes
+        self._dropped_pool_bytes = 0   # captures of keys that failed
+        # a key is captured at its second visit until the grid is
+        # validated; after, only the keys validation warmed up are graphs
+        # and any other key stays eager, so nothing is captured while
+        # serving
+        self._lazy_capture = True
+        # peak reserved device memory above the start of the last
+        # validate_bucket_grid (graphs and the eager warm-up visits)
+        self.validation_peak_bytes = 0
         self._multi_step = max(1, resource_cfg.multi_step)
         self._block_tail = resource_cfg.block_tail
         # device [B_bucket] sampled tokens of the last dispatch's last
@@ -200,8 +256,7 @@ class LLMEngine:
 
         self.batch_buckets = tuple(resource_cfg.batch_buckets)
         self.token_buckets = tuple(resource_cfg.token_buckets)
-        # per-token-bucket prefill row caps (the JAX package fills these
-        # from bucket-grid validation; nothing caps them here)
+        # per-token-bucket prefill row caps, from validate_bucket_grid
         self.max_prefill_rows: Dict[int, int] = {}
         self.max_kv_pages = max(
             1, -(-GeneratorConfig().max_total_tokens_per_request
@@ -317,18 +372,210 @@ class LLMEngine:
                 f["decode_tokens"] = prev_tokens
             return inner(*state, LLMEngine._make_input(f), gumbel)
 
-        runner = _Runner(block, self.device)
+        runner = _Runner(block, self.device, self._graph_pool,
+                         lazy=self._lazy_capture)
         self._runners[key] = runner
         return runner
 
     def graph_stats(self) -> Dict[str, int]:
         """Captured CUDA graphs, their replays so far, and the bytes their
-        private memory pools hold (what each capture added to the
-        allocator's reserved memory; nothing caps them)."""
+        shared memory pool holds (what the captures added to the
+        allocator's reserved memory, a failed key's included: the pool
+        keeps it), which :meth:`prewarm` holds to ``graph_budget_bytes``."""
         runners = self._runners.values()
         return {"graphs": sum(r.graph is not None for r in runners),
                 "replays": sum(r.replays for r in runners),
-                "pool_bytes": sum(r.pool_bytes for r in runners)}
+                "pool_bytes": (sum(r.pool_bytes for r in runners)
+                               + self._dropped_pool_bytes)}
+
+    # -- startup validation --------------------------------------------------
+
+    def _padding_args(self, key: Tuple) -> Tuple:
+        """A runner's arguments for an all-padding plan of ``key``: rows
+        with context 0, page-table entries at the trash page, the trash
+        penalty slot; zero noise for a sampled key."""
+        n_steps, feed, bd, bp, qp, kvp, greedy, cont = key
+        dev = self.device
+        packed = torch.from_numpy(self._pack_arrays(
+            self._plan_arrays(bd, bp, qp, kvp))).to(dev)
+        advance = (torch.full((1,), n_steps, dtype=torch.int32, device=dev)
+                   if cont else None)
+        prev = torch.zeros(bd, dtype=torch.int32, device=dev) if feed else None
+        gumbel = None
+        if not greedy:
+            v = self.model_cfg.vocab_size
+            c = self.top_k_cap if self.top_k_cap and self.top_k_cap < v else v
+            gumbel = torch.zeros((n_steps, bd + bp, c), dtype=torch.float32,
+                                 device=dev)
+        return packed, advance, prev, gumbel
+
+    def _warm(self, key: Tuple) -> None:
+        """Warm one key up: its eager first visit and, on cuda, its
+        capture. Raises ``torch.cuda.OutOfMemoryError`` when the device
+        runs out of memory."""
+        runner = self._get_runner(*key[:6], greedy=key[6], cont=key[7])
+        args = self._padding_args(key)
+        if not runner.visits:
+            runner(*args)
+        if self.device.type == "cuda" and runner.graph is None:
+            runner.capture(args)
+
+    def prewarm(self, keys) -> int:
+        """Warm up the step programs of ``keys`` (tuples ``(n_steps, feed,
+        bd, bp, qp, kvp, greedy, cont)``) before serving, each on an
+        all-padding plan; returns how many passed. A key fails when its
+        warm-up runs out of device memory, or when its capture takes the
+        graphs past ``graph_budget_bytes``: its runner is dropped and its
+        memory released. Any other error raises. The padding writes land
+        on the trash page and the count map's trash row, which are put
+        back as they were."""
+        trash = slice(self.spec.trash_page * self.spec.page_size,
+                      (self.spec.trash_page + 1) * self.spec.page_size)
+        layer_rows = [slice(li * self.spec.num_slots + trash.start,
+                            li * self.spec.num_slots + trash.stop)
+                      for li in range(self.spec.num_layers)]
+        saved = ([self.kv_cache[:, r].clone() for r in layer_rows],
+                 [None if self.kv_scale is None else self.kv_scale[r].clone()
+                  for r in layer_rows],
+                 self.count_map[-1].clone())
+        n_ok = 0
+        for key in keys:
+            key = (int(key[0]), bool(key[1]), int(key[2]), int(key[3]),
+                   int(key[4]), int(key[5]), bool(key[6]), bool(key[7]))
+            try:
+                self._warm(key)
+                over = (self.graph_budget_bytes and self.graph_stats()[
+                    "pool_bytes"] > self.graph_budget_bytes)
+            except torch.cuda.OutOfMemoryError as e:
+                logger.warning("prewarm: key %s ran out of device memory: "
+                               "%s", key, str(e).splitlines()[0])
+                over = True
+            else:
+                if over:
+                    logger.warning(
+                        "prewarm: key %s takes the CUDA graphs to %d MiB, "
+                        "past their budget of %d MiB", key,
+                        self.graph_stats()["pool_bytes"] >> 20,
+                        self.graph_budget_bytes >> 20)
+            if over:
+                runner = self._runners.pop(key, None)
+                if runner is not None:
+                    self._dropped_pool_bytes += runner.pool_bytes
+                del runner
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                continue
+            n_ok += 1
+        for r, c, sc in zip(layer_rows, saved[0], saved[1]):
+            self.kv_cache[:, r] = c
+            if sc is not None:
+                self.kv_scale[r] = sc
+        self.count_map[-1] = saved[2]
+        return n_ok
+
+    def validate_bucket_grid(self, max_total_tokens_per_request: int,
+                             max_running_batch: int,
+                             max_tokens_per_step: int = 0) -> int:
+        """Warm up (eager visit and capture) the extreme decode- and
+        mixed-prefill-bucket programs BEFORE serving and clamp the bucket
+        tables to what fits device memory and the graph budget: the JAX
+        package's ``validate_bucket_grid``, decision for decision, over
+        :meth:`prewarm`.
+
+        Decode buckets ascending: at each, every variant traffic can
+        dispatch (greedy and sampled; for blocks, the device-fed block and
+        the continuation runner); a bucket past the first one covering
+        ``max_running_batch`` is dropped without a visit. With
+        ``max_tokens_per_step``, per token bucket the widest mixed program
+        admission can form under the padded-wave budget, next to the
+        largest decode bucket: a narrower width that is the first to pass
+        caps ``max_prefill_rows[qp]``, and a token bucket that fails even
+        at one row gets cap 0.
+
+        From here on, a key that this did not warm up runs eagerly.
+        Returns the clamped max running batch (the largest surviving
+        batch bucket, or the input if all buckets fit)."""
+        self._lazy_capture = False
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(self.device)
+            reserved0 = torch.cuda.memory_reserved(self.device)
+        pages_per_req = -(-max_total_tokens_per_request
+                          // self.spec.page_size)
+        # align the pinned production page-table width (build_plan) with
+        # the shapes validated here
+        self.set_max_kv_pages(pages_per_req)
+        kvp = self._kvp_bucket(pages_per_req)
+        n_steps = self._multi_step if self._multi_step > 1 else 1
+        clamped = max_running_batch
+        keep = []
+        covered = False   # a kept bucket >= max_running_batch exists
+        for bucket in sorted(self.batch_buckets):
+            if covered:
+                # unreachable at this config and unvalidated: dropped, so
+                # that a validated grid never holds an unwarmed bucket
+                logger.info(
+                    "bucket grid: dropping unreachable (unvalidated) "
+                    "decode batch bucket %d > max_running_batch %d",
+                    bucket, max_running_batch)
+                continue
+            qp0 = self.token_buckets[0]
+            keys = [(n_steps, n_steps > 1, bucket, 0, qp0, kvp, g, False)
+                    for g in (False, True)]
+            if n_steps > 1:
+                keys += [(n_steps, True, bucket, 0, qp0, kvp, g, True)
+                         for g in (False, True)]
+            if all(self.prewarm([k]) == 1 for k in keys):
+                keep.append(bucket)
+                covered = bucket >= max_running_batch
+                continue
+            logger.error(
+                "bucket grid: decode batch bucket %d (kvp %d) does not "
+                "fit on this device - dropping it and clamping "
+                "max_running_batch", bucket, kvp)
+            clamped = min(clamped, max(keep) if keep else 1)
+        self.batch_buckets = tuple(keep) if keep else self.batch_buckets
+
+        if max_tokens_per_step:
+            bd_max = max(self.batch_buckets)
+            for qp in sorted(self.token_buckets):
+                # row buckets admission can pair with this token bucket
+                # under the padded-wave budget, widest first; always at
+                # least try one row
+                rbs = sorted((rb for rb in _PREFILL_ROW_BUCKETS
+                              if rb >= 1 and rb * qp <= max_tokens_per_step),
+                             reverse=True) or [1]
+                if qp > max_tokens_per_step:
+                    # only single-row waves can ever use this bucket
+                    rbs = [1]
+                for rb in rbs:
+                    if all(self.prewarm(
+                            [(1, False, bd_max, rb, qp, kvp, g, False)]) == 1
+                           for g in (False, True)):
+                        if rb != rbs[0]:
+                            logger.error(
+                                "bucket grid: mixed program (bd %d, qp %d, "
+                                "kvp %d) only fits up to %d prefill rows - "
+                                "capping the wave width for this token "
+                                "bucket", bd_max, qp, kvp, rb)
+                            self.max_prefill_rows[qp] = rb
+                        break
+                else:
+                    # not even one row fits next to the largest decode
+                    # bucket: admission fails such requests fast (cap 0)
+                    logger.error(
+                        "bucket grid: token bucket %d does not fit even at "
+                        "one prefill row - prompts bucketing there will be "
+                        "rejected", qp)
+                    self.max_prefill_rows[qp] = 0
+
+        if self.device.type == "cuda":
+            self.validation_peak_bytes = (
+                torch.cuda.max_memory_reserved(self.device) - reserved0)
+        return min(clamped, max_running_batch)
 
     def padded_prefill_tokens(self, n_rows: int, max_chunk_len: int) -> int:
         """The PADDED prefill footprint of the plan (row bucket x token
@@ -382,53 +629,35 @@ class LLMEngine:
         # bytes)
         kvp = self._kvp_bucket(self.max_kv_pages)
 
-        b = bd + bp
-        trash_page = self.spec.trash_page
-        trash_slot = self.count_map.shape[0] - 1
-
-        decode_tokens = np.zeros(bd, np.int32)
-        decode_pos = np.zeros(bd, np.int32)
-        prefill_tokens = np.zeros((bp, qp), np.int32)
-        prefill_start = np.zeros(bp, np.int32)
-        prefill_len = np.zeros(bp, np.int32)
-        page_table = np.full((b, kvp), trash_page, np.int32)
-        context_len = np.zeros(b, np.int32)
-        batch_slots = np.full(b, trash_slot, np.int32)
-        temperature = np.ones(b, np.float32)
-        top_k = np.ones(b, np.int32)
-        top_p = np.zeros(b, np.float32)
-        do_sample = np.zeros(b, bool)  # padding rows: greedy
-        rep_pen = np.ones(b, np.float32)
-        pres_pen = np.zeros(b, np.float32)
-        freq_pen = np.zeros(b, np.float32)
+        a = self._plan_arrays(bd, bp, qp, kvp)
 
         def fill_row(row: int, t: TaskState) -> None:
             pages = t.page_list[:kvp]
-            page_table[row, :len(pages)] = pages
-            context_len[row] = t.start_pos + len(t.next_tokens)
+            a["page_table"][row, :len(pages)] = pages
+            a["context_len"][row] = t.start_pos + len(t.next_tokens)
             if t.slot_index >= 0:
-                batch_slots[row] = t.slot_index
-            temperature[row] = t.temperature
+                a["batch_slots"][row] = t.slot_index
+            a["temperature"][row] = t.temperature
             # requested k beyond the candidate cap is clamped
-            top_k[row] = (min(t.top_k, self.top_k_cap)
-                          if self.top_k_cap and t.top_k > 0 else t.top_k)
-            top_p[row] = t.top_p
-            do_sample[row] = t.do_sample
-            rep_pen[row] = t.repetition_penalty
-            pres_pen[row] = t.presence_penalty
-            freq_pen[row] = t.frequency_penalty
+            a["top_k"][row] = (min(t.top_k, self.top_k_cap)
+                               if self.top_k_cap and t.top_k > 0 else t.top_k)
+            a["top_p"][row] = t.top_p
+            a["do_sample"][row] = t.do_sample
+            a["rep_pen"][row] = t.repetition_penalty
+            a["pres_pen"][row] = t.presence_penalty
+            a["freq_pen"][row] = t.frequency_penalty
 
         for row, i in enumerate(decode_idx):
             t = tasks[i]
-            decode_tokens[row] = t.next_tokens[0]
-            decode_pos[row] = t.start_pos
+            a["decode_tokens"][row] = t.next_tokens[0]
+            a["decode_pos"][row] = t.start_pos
             fill_row(row, t)
         for prow, i in enumerate(prefill_idx):
             t = tasks[i]
             n = len(t.next_tokens)
-            prefill_tokens[prow, :n] = t.next_tokens
-            prefill_start[prow] = t.start_pos
-            prefill_len[prow] = n
+            a["prefill_tokens"][prow, :n] = t.next_tokens
+            a["prefill_start"][prow] = t.start_pos
+            a["prefill_len"][prow] = n
             fill_row(bd + prow, t)
 
         return {
@@ -436,27 +665,34 @@ class LLMEngine:
             "n_tasks": len(tasks),
             # every row argmaxes (do_sample False covers padding rows):
             # the step skips candidate selection
-            "greedy": not any(do_sample),
+            "greedy": not a["do_sample"].any(),
             "bd": bd,
             "decode_idx": decode_idx,
             "prefill_idx": prefill_idx,
-            "arrays": {
-                "decode_tokens": decode_tokens,
-                "decode_pos": decode_pos,
-                "prefill_tokens": prefill_tokens,
-                "prefill_start": prefill_start,
-                "prefill_len": prefill_len,
-                "page_table": page_table,
-                "context_len": context_len,
-                "batch_slots": batch_slots,
-                "temperature": temperature,
-                "top_k": top_k,
-                "top_p": top_p,
-                "do_sample": do_sample,
-                "rep_pen": rep_pen,
-                "pres_pen": pres_pen,
-                "freq_pen": freq_pen,
-            },
+            "arrays": a,
+        }
+
+    def _plan_arrays(self, bd: int, bp: int, qp: int, kvp: int
+                     ) -> Dict[str, np.ndarray]:
+        """A plan's arrays with every row padding: context 0, page-table
+        entries at the trash page, the trash penalty slot, greedy."""
+        b = bd + bp
+        return {
+            "decode_tokens": np.zeros(bd, np.int32),
+            "decode_pos": np.zeros(bd, np.int32),
+            "prefill_tokens": np.zeros((bp, qp), np.int32),
+            "prefill_start": np.zeros(bp, np.int32),
+            "prefill_len": np.zeros(bp, np.int32),
+            "page_table": np.full((b, kvp), self.spec.trash_page, np.int32),
+            "context_len": np.zeros(b, np.int32),
+            "batch_slots": np.full(b, self.count_map.shape[0] - 1, np.int32),
+            "temperature": np.ones(b, np.float32),
+            "top_k": np.ones(b, np.int32),
+            "top_p": np.zeros(b, np.float32),
+            "do_sample": np.zeros(b, bool),
+            "rep_pen": np.ones(b, np.float32),
+            "pres_pen": np.zeros(b, np.float32),
+            "freq_pen": np.zeros(b, np.float32),
         }
 
     def _gumbel(self, n_steps: int, b: int, greedy: bool
@@ -673,11 +909,14 @@ class LLMEngine:
 
 def compute_kv_cache_max_tokens(model_cfg: ModelConfig,
                                 resource_cfg: ResourceConfig,
-                                free_bytes: int) -> int:
-    """``kv_cache_max_tokens = max_tokens_scale * free / block_bytes``
-    (``resource_manager.cc:329-342``); block = K+V across layers at the
-    cache's element size: 1 byte under int8 KV, plus one bf16 scale per
-    group, as the JAX package counts them."""
+                                free_bytes: int,
+                                reserved_bytes: int = 0) -> int:
+    """``kv_cache_max_tokens = max_tokens_scale * (free - reserved) /
+    block_bytes`` (``resource_manager.cc:329-342``, where nothing is
+    reserved); block = K+V across layers at the cache's element size: 1
+    byte under int8 KV, plus one bf16 scale per group, as the JAX package
+    counts them. ``reserved_bytes``: what the CUDA graphs and their
+    warm-up need beside the pool."""
     if resource_cfg.kv_cache_max_tokens:
         return resource_cfg.kv_cache_max_tokens
     int8 = model_cfg.cache_quant_bit == 8
@@ -690,4 +929,5 @@ def compute_kv_cache_max_tokens(model_cfg: ModelConfig,
                   * model_cfg.head_dim // model_cfg.cache_quant_group * 2)
     if free_bytes <= 0 or block <= 0:
         return 16384  # CPU default
-    return int(resource_cfg.max_tokens_scale * free_bytes / block)
+    return int(resource_cfg.max_tokens_scale
+               * max(free_bytes - reserved_bytes, 0) / block)

@@ -351,7 +351,15 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
 
         x = params["embedding"][flat_tokens.long()].to(compute_dtype)
 
-        new_rows, new_srows = [], []
+        # every layer's new K/V rows (and scale rows), held to the step's
+        # one cache write in a buffer of their own: the step's largest
+        # allocation at prefill sizes, so no second copy of it is made
+        n_layers = len(params["layers"])
+        rows_l = torch.empty((n_layers, t_flat, n_kv, spec.row_lanes),
+                             dtype=kv_cache.dtype, device=dev)
+        srows_l = (torch.empty((n_layers, t_flat, spec.scale_lanes),
+                               dtype=torch.bfloat16, device=dev)
+                   if spec.quantized else None)
         for li, p in enumerate(params["layers"]):
             h = rms_norm(x, p["attn_norm"], eps)
             t = x.shape[0]
@@ -365,8 +373,9 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                 q = apply_rope(q, flat_pos, theta)
                 k = apply_rope(k, flat_pos, theta)
             rows, srows = prep_new_kv(k, v)
-            new_rows.append(rows)
-            new_srows.append(srows)
+            rows_l[li] = rows
+            if srows is not None:
+                srows_l[li] = srows
             if bd:
                 attn_d = attn_kernels.paged_decode_attention(
                     q[:bd].contiguous(), kv_cache, kv_scale, pt_decode,
@@ -401,8 +410,6 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                           compute_dtype)
             x = x + down.to(compute_dtype)
 
-        rows_l = torch.stack(new_rows)                      # [L,T,KVH,2*shd]
-        srows_l = torch.stack(new_srows) if spec.quantized else None
         if not defer_scatter:
             kv_ops.append_kv_rows_block(kv_cache, kv_scale, rows_l, srows_l,
                                         slots, spec)

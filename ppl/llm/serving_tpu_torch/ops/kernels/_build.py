@@ -13,7 +13,8 @@ header never loads a stale library. A build writes to a temporary name
 and renames it into place, and the compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills) is kept beside the library as
 ``<name>.ptxas.txt``. :func:`sass_counts` counts chosen instructions
-(the tensor cores' ``IMMA``, ``HMMA``) per kernel of a built library.
+(the tensor cores' ``IMMA``, ``HMMA``) per kernel of a built library;
+:func:`sm_count` reads the device's SM count for the launch plans.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG_DIR / "csrc"
@@ -146,6 +149,17 @@ def sass_counts(name: str, ops: Iterable[str] = ("IMMA", "HMMA")
     out = subprocess.run([find_cuobjdump(), "-sass", str(path)],
                          capture_output=True, text=True, check=True)
     return parse_sass_counts(out.stdout, ops)
+
+
+_SM_COUNT: Dict[object, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (what the launch plans read)."""
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device]
 
 
 def load(name: str) -> ctypes.CDLL:

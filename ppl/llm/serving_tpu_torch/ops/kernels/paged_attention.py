@@ -20,7 +20,8 @@ as the packed ``fresh_kv`` slab ``[Bp, KVH, Qp, 2*shd]`` and writes zeros
 for query rows past ``new_len``.
 
 With int8 KV the cache is int8 and ``scale`` holds its bf16 group-scale
-rows ``[L*S, scale_lanes]``; the kernels dequantize each page in f32.
+rows ``[L*S, scale_lanes]``; the kernels dequantize each page (to bf16
+for bf16 q, as the Pallas bodies do, in f32 for f32 q).
 Decode's ``fresh_k/fresh_v`` stay unquantized (q's dtype); prefill's
 ``fresh_kv`` is int8 too, with its scale rows ``fresh_scale
 [Bp, Qp, scale_lanes]``.
@@ -28,11 +29,17 @@ Decode's ``fresh_k/fresh_v`` stay unquantized (q's dtype); prefill's
 ``alibi`` (f32 slopes ``[Hq]`` on q's device, or None) adds the ALiBi
 bias ``slope * k_pos`` to every score, at the key positions the plain
 versions document.
+
+Decode with bf16 q splits each row's context over the CTAs that
+:func:`plan_decode_splits` chooses (:func:`split_pages` says which pages
+each covers); its partials and arrival counters are allocated per call,
+so a CUDA graph captures them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,10 +50,12 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_GROUP = 8                # kKvGroup in the .cu: int8 KV scale group
-_DEC_MAX_OUT = 8 * 256       # kDecMaxOut * kThreads in the .cu
-_PREFILL_HD = (16, 32, 64, 128)
+_DEC_MAX_OUT = 8 * 256       # kDecMaxOut * kThreads in the .cu (f32 body)
+_HEAD_DIMS = (16, 32, 64, 128)  # K2's and K1's bf16 instantiations
 _PREFILL_ROWS = 64           # kRows in the .cu
+_DEC_TC_ROWS = 16            # K1's A tile: at most 16 query heads a kv head
 _DECODE_CHUNK = 64
+CTAS_PER_SM = 2              # what K1's split plan aims for at small batch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,7 +68,8 @@ def _lib():
     if not getattr(lib, "_ppl_typed", False):
         lib.ppl_paged_decode_attention.argtypes = [
             _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-            _I, _I, _LL, _I, _LL, _I, _F, _P, _P, _P, _I, _P, _P]
+            _I, _I, _LL, _I, _LL, _I, _F, _P, _P, _P, _I, _P, _I, _P, _P,
+            _P]
         lib.ppl_paged_decode_attention.restype = _I
         lib.ppl_paged_prefill_attention.argtypes = [
             _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -127,6 +137,26 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def plan_decode_splits(b: int, kvh: int, p: int, num_sms: int) -> int:
+    """K1's context splits S for a ``(B, KVH)`` grid over a page table
+    ``p`` pages wide: 1 when the ``B * KVH`` CTAs fill the SMs, else
+    enough for about ``CTAS_PER_SM`` CTAs a SM, at most one a page. Every
+    value is known when a step is built, so a program key keeps one S."""
+    rows = b * kvh
+    if rows <= 0 or rows >= num_sms:
+        return 1
+    return max(1, min(p, -(-CTAS_PER_SM * num_sms // rows)))
+
+
+def split_pages(n_pages: int, splits: int, z: int) -> Tuple[int, int]:
+    """The pages ``[p0, p1)`` that split ``z`` of ``splits`` covers in a
+    row whose cached tokens fill ``n_pages`` pages (K1's tensor-core body
+    computes the same): ``ceil(n_pages / splits)`` whole pages a split,
+    none past ``n_pages``."""
+    pps = -(-n_pages // splits)
+    return min(z * pps, n_pages), min((z + 1) * pps, n_pages)
+
+
 def paged_decode_attention(
     q: torch.Tensor,             # [B, Hq, hd]
     cache: torch.Tensor,         # [KVH, L*S, 2*shd] (int8 when quantized)
@@ -142,11 +172,16 @@ def paged_decode_attention(
     tail_scale=None,             # bf16 [L, B, J, scale_lanes] if int8
     tail_len=None,               # i32[1]
     alibi=None,                  # f32[Hq] ALiBi slopes
+    splits: Optional[int] = None,
 ) -> torch.Tensor:               # [B, Hq, hd]
     """K1: decode attention over the paged cache; the cache holds
     ``context_len - 1`` tokens and the current token's k/v enters as a
     self-term. With ``tail_kv`` (block-tail mode) the cache holds
-    ``tail_len`` tokens fewer and those come from the side buffer."""
+    ``tail_len`` tokens fewer and those come from the side buffer.
+
+    bf16 q runs the tensor-core body over ``splits`` CTAs a (row, kv
+    head), :func:`plan_decode_splits`'s choice when None; f32 q runs the
+    SIMT body, unsplit."""
     if q.device.type == "cpu":
         out = attn_ops.decode_attention_ref(
             q, cache, scale, page_table, context_len, spec, layer=layer,
@@ -169,8 +204,16 @@ def paged_decode_attention(
     if fresh_k.dtype != q.dtype or fresh_v.dtype != q.dtype:
         raise TypeError("paged_decode_attention: fresh k/v dtype must be "
                         "q's")
-    if (hq // kvh) * hd > _DEC_MAX_OUT:
+    g = hq // kvh
+    tc = q.dtype == torch.bfloat16
+    if tc and (hd not in _HEAD_DIMS or g > _DEC_TC_ROWS):
+        raise ValueError(f"paged_decode_attention: head_dim {hd} / group {g} "
+                         f"not supported (head_dim in {_HEAD_DIMS}, group "
+                         f"<= {_DEC_TC_ROWS})")
+    if not tc and g * hd > _DEC_MAX_OUT:
         raise ValueError("paged_decode_attention: G*head_dim too large")
+    if splits is not None and splits < 1:
+        raise ValueError(f"paged_decode_attention: splits {splits} < 1")
     extra = {"scale": scale} if spec.quantized else {}
     jt = 0
     if tail_kv is not None:
@@ -188,6 +231,16 @@ def paged_decode_attention(
     out = torch.empty_like(q)
     if b == 0:
         return out
+    s, part, done = 1, None, None
+    if tc:
+        s = splits or plan_decode_splits(b, kvh, page_table.shape[1],
+                                         _build.sm_count(q.device))
+        if s > 1:
+            # the splits' partials (acc [G, hd], m [G], l [G]) and one
+            # arrival counter a (row, kv head)
+            part = torch.empty(b * kvh * s * g * (hd + 2),
+                               dtype=torch.float32, device=q.device)
+            done = torch.zeros(b * kvh, dtype=torch.int32, device=q.device)
     err = _lib().ppl_paged_decode_attention(
         _DTYPE_CODE[q.dtype], int(spec.quantized), q.data_ptr(),
         cache.data_ptr(), _ptr(extra.get("scale")), spec.scale_lanes,
@@ -196,8 +249,8 @@ def paged_decode_attention(
         page_table.shape[1], spec.page_size, cache.shape[1], layer,
         spec.num_slots, _DECODE_CHUNK, hd ** -0.5,
         _ptr(extra.get("tail_kv")), _ptr(extra.get("tail_scale")),
-        _ptr(extra.get("tail_len")), jt, _ptr(alibi),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(extra.get("tail_len")), jt, _ptr(alibi), s, _ptr(part),
+        _ptr(done), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention: launch failed "
                            f"(cudaError {err})")
@@ -289,7 +342,7 @@ def paged_prefill_attention(
     if fresh_kv.dtype != cache.dtype:
         raise TypeError("paged_prefill_attention: fresh_kv dtype must be "
                         "the cache's")
-    if hd not in _PREFILL_HD or hq // kvh > _PREFILL_ROWS:
+    if hd not in _HEAD_DIMS or hq // kvh > _PREFILL_ROWS:
         raise ValueError(f"paged_prefill_attention: head_dim {hd} / group "
                          f"{hq // kvh} not supported")
     extra = {}

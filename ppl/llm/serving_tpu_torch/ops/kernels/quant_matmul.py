@@ -106,16 +106,6 @@ def plan_split_k(t: int, d: int, n: int, c: int, num_sms: int):
     return -(-stages // per_piece), per_piece * K_STAGE
 
 
-_SM_COUNT = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    if device not in _SM_COUNT:
-        _SM_COUNT[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SM_COUNT[device]
-
-
 def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if x.device.type == "cpu":
@@ -142,7 +132,7 @@ def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if t:
         lib = _lib()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        splits, kchunk = plan_split_k(t, d, n, c, _sm_count(x.device))
+        splits, kchunk = plan_split_k(t, d, n, c, _build.sm_count(x.device))
         ldx = -(-d // ROW_ALIGN) * ROW_ALIGN
         xq, xs = _quantize_rows("i8i8_matmul", lib, x, stream, ldx)
         # split-K: int32 sums [C, T, N] and one counter per column tile

@@ -186,18 +186,16 @@ def append_kv_rows_block(cache: torch.Tensor,
     written values, as XLA's scatter does; nothing ever reads the trash
     page.
     """
-    kvh, ls_slots, lanes = cache.shape
+    kvh, _, lanes = cache.shape
     n_layers = spec.num_layers
     lslots = (torch.arange(n_layers, dtype=torch.int64,
                            device=slots.device)[:, None] * spec.num_slots
               + slots.long()[None, :])                        # [L, T]
-    flat = cache.view(kvh * ls_slots, lanes)
-    row_ids = (torch.arange(kvh, dtype=torch.int64,
-                            device=slots.device)[:, None] * ls_slots
-               + lslots.reshape(-1)[None, :]).reshape(-1)     # [KVH*L*T]
-    flat.index_copy_(0, row_ids,
-                     rows.permute(2, 0, 1, 3).reshape(-1, lanes)
-                     .to(cache.dtype))
+    # rows [L, T, KVH, lanes] seen as [KVH, L*T, lanes]: a view of a
+    # contiguous rows tensor (no copy of the step's largest buffer)
+    cache.index_copy_(1, lslots.reshape(-1),
+                      rows.permute(2, 0, 1, 3).reshape(kvh, -1, lanes)
+                      .to(cache.dtype))
     if spec.quantized:
         scale.index_copy_(0, lslots.reshape(-1),
                           srows.reshape(-1, spec.scale_lanes))

@@ -2,11 +2,15 @@
 
 Same order as the JAX package's ``resources.py`` (and the reference's
 ``resource_manager.cc:329-362``): make the weights, measure free device
-memory, size the KV pool from what is left.
+memory, size the KV pool from what is left. An auto-sized pool on cuda
+is sized after the CUDA graphs: a provisional engine with one request's
+pages validates the bucket grid first, and what its graphs and their
+warm-up took is held back from the pool.
 """
 
 from __future__ import annotations
 
+import gc
 import logging
 from typing import Tuple
 
@@ -20,12 +24,35 @@ from .ops.kv_cache import CacheSpec
 logger = logging.getLogger("ppl.llm.serving_tpu_torch.resources")
 
 
+def kv_pool_tokens(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
+                   free_bytes: int, reserved_bytes: int = 0) -> int:
+    """The KV pool's tokens as :func:`create_engine` serves them:
+    :func:`compute_kv_cache_max_tokens` rounded down to whole pages (at
+    least one)."""
+    tokens = compute_kv_cache_max_tokens(model_cfg, resource_cfg, free_bytes,
+                                         reserved_bytes)
+    page = model_cfg.page_size if model_cfg.cache_mode == 1 else 1
+    return max(page, tokens // page * page)
+
+
 def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
-                  gen_cfg: GeneratorConfig,
-                  rng_seed: int = 0) -> Tuple[LLMEngine, int]:
+                  gen_cfg: GeneratorConfig, rng_seed: int = 0,
+                  validate_grid=None) -> Tuple[LLMEngine, int, int]:
     """Build the engine on ``resource_cfg.device``; returns (engine,
-    kv_cache_max_tokens). Raises when the device is "cuda" and PyTorch
-    sees no GPU: the engine never carries on on the CPU unasked."""
+    kv_cache_max_tokens, max_running_batch). Raises when the device is
+    "cuda" and PyTorch sees no GPU: the engine never carries on on the
+    CPU unasked.
+
+    ``validate_grid`` (default: when the pool is auto-sized on cuda) runs
+    :meth:`LLMEngine.validate_bucket_grid` with ``gen_cfg``'s limits
+    before serving; ``max_running_batch`` is then its clamp, for the
+    caller to put into ``gen_cfg``, else ``gen_cfg.max_running_batch``.
+    An auto-sized pool on cuda is validated twice: on a provisional
+    engine with one request's pages, whose peak memory above the weights
+    (the shared graph pool and the largest eager warm-up) is held back
+    from the pool and becomes the real engine's graph budget, then on the
+    real engine, so that no capture runs after the pool is sized except
+    those that validation makes."""
     model_cfg.validate()
     resource_cfg.validate()
     device = torch.device(resource_cfg.device)
@@ -33,6 +60,10 @@ def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
         raise RuntimeError(
             "device 'cuda' asked for but torch.cuda.is_available() is "
             "false; pass device='cpu' (--device cpu) to run on the CPU")
+    auto = not resource_cfg.kv_cache_max_tokens
+    cuda = device.type == "cuda"
+    if validate_grid is None:
+        validate_grid = auto and cuda
 
     params = loader.load_params(model_cfg, resource_cfg.model_format,
                                 resource_cfg.model_dir, seed=rng_seed,
@@ -41,33 +72,62 @@ def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
         params = llama.quantize_model_params(
             params, resource_cfg.quant_method, resource_cfg.quantize_lm_head)
 
-    free = 0
-    if device.type == "cuda":
+    def build(kv_tokens: int, graph_budget_bytes: int = 0) -> LLMEngine:
+        page = model_cfg.page_size
+        spec = CacheSpec(
+            num_layers=model_cfg.num_layers,
+            num_pages=kv_tokens // page if model_cfg.cache_mode == 1
+            else -(-kv_tokens // page),
+            page_size=page,
+            num_kv_heads=model_cfg.num_kv_heads,
+            head_dim=model_cfg.head_dim,
+            quant_bit=model_cfg.cache_quant_bit,
+            quant_group=model_cfg.cache_quant_group,
+            dtype=llama.torch_dtype(model_cfg.dtype),
+        )
+        return LLMEngine(
+            model_cfg, resource_cfg, params, spec,
+            enable_penalty=resource_cfg.enable_penalty,
+            max_batch_slots=gen_cfg.max_running_batch,
+            device=device, rng_seed=rng_seed,
+            graph_budget_bytes=graph_budget_bytes)
+
+    def validate(engine: LLMEngine, max_running_batch: int) -> int:
+        return engine.validate_bucket_grid(
+            gen_cfg.max_total_tokens_per_request, max_running_batch,
+            gen_cfg.max_tokens_per_step)
+
+    free = reserved = 0
+    if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         free, _ = torch.cuda.mem_get_info(device)
-    kv_cache_max_tokens = compute_kv_cache_max_tokens(
-        model_cfg, resource_cfg, free)
-    page = model_cfg.page_size if model_cfg.cache_mode == 1 else 1
-    kv_cache_max_tokens = max(page, kv_cache_max_tokens // page * page)
-    logger.info("kv_cache_max_tokens = %d (free bytes %d)",
-                kv_cache_max_tokens, free)
-
-    spec = CacheSpec(
-        num_layers=model_cfg.num_layers,
-        num_pages=kv_cache_max_tokens // page if model_cfg.cache_mode == 1
-        else -(-kv_cache_max_tokens // model_cfg.page_size),
-        page_size=model_cfg.page_size,
-        num_kv_heads=model_cfg.num_kv_heads,
-        head_dim=model_cfg.head_dim,
-        quant_bit=model_cfg.cache_quant_bit,
-        quant_group=model_cfg.cache_quant_group,
-        dtype=llama.torch_dtype(model_cfg.dtype),
-    )
-    engine = LLMEngine(
-        model_cfg, resource_cfg, params, spec,
-        enable_penalty=resource_cfg.enable_penalty,
-        max_batch_slots=gen_cfg.max_running_batch,
-        device=device, rng_seed=rng_seed,
-    )
-    return engine, kv_cache_max_tokens
+    max_running_batch = gen_cfg.max_running_batch
+    buckets = None
+    if validate_grid and auto and cuda:
+        page = model_cfg.page_size
+        probe = build(-(-gen_cfg.max_total_tokens_per_request // page)
+                      * page)
+        max_running_batch = validate(probe, max_running_batch)
+        reserved = probe.validation_peak_bytes
+        graph_bytes = probe.graph_stats()["pool_bytes"]
+        buckets = probe.batch_buckets
+        del probe
+        gc.collect()
+        torch.cuda.empty_cache()
+        logger.info("bucket grid on a provisional engine: buckets %s, "
+                    "max_running_batch %d, CUDA graphs %d MiB, peak %d "
+                    "MiB above the weights with their warm-up",
+                    buckets, max_running_batch, graph_bytes >> 20,
+                    reserved >> 20)
+    kv_cache_max_tokens = kv_pool_tokens(model_cfg, resource_cfg, free,
+                                         reserved)
+    logger.info("kv_cache_max_tokens = %d (free bytes %d after the weights, "
+                "%d of them held back for the CUDA graphs and their "
+                "warm-up)", kv_cache_max_tokens, free, reserved)
+    engine = build(kv_cache_max_tokens, reserved)
+    if buckets is not None:
+        engine.batch_buckets = buckets
+    if validate_grid:
+        max_running_batch = validate(engine, max_running_batch)
+    return engine, kv_cache_max_tokens, max_running_batch

@@ -45,8 +45,13 @@ def main():
     tokenizer = create_tokenizer(args.model_type, resource_cfg.tokenizer_path,
                                  args.tokenizer_type,
                                  args.tokenizer_config_path or None)
-    engine, kv_max = create_engine(model_cfg, resource_cfg, gen_cfg,
-                                   rng_seed=args.seed)
+    engine, kv_max, max_running_batch = create_engine(
+        model_cfg, resource_cfg, gen_cfg, rng_seed=args.seed)
+    if max_running_batch < gen_cfg.max_running_batch:
+        print(f"[WARN] bucket grid clamped: max_running_batch "
+              f"{gen_cfg.max_running_batch} -> {max_running_batch} (largest "
+              f"decode bucket that fits device memory)", flush=True)
+        gen_cfg.max_running_batch = max_running_batch
     conn = LocalConnection()
     generator = LLMGenerator(model_cfg, gen_cfg, engine, tokenizer, conn,
                              kv_max)

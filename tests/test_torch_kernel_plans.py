@@ -1,10 +1,12 @@
 """Host-side pieces of the port's kernels that run without a card: K3's
-split-K planner, the build's cache key (sources and shared headers) and
-the SASS instruction counter that ``chip_smoke.py`` reads."""
+split-K planner, K1's context-split plan, the build's cache key (sources
+and shared headers) and the SASS instruction counter that
+``chip_smoke.py`` reads."""
 
 import pytest
 
 from ppl.llm.serving_tpu_torch.ops.kernels import _build
+from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention as pk
 from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul as qk
 
 # (D, N, C) of the i8i8 weights the serving paths run: Baichuan-13B,
@@ -44,6 +46,45 @@ def test_split_k_at_13b_widths():
     pieces enough for two CTAs on each of an H100's 132 SMs."""
     assert qk.plan_split_k(8, 13696, 5120, 1, 132) == (8, 1920)
     assert qk.plan_split_k(8, 5120, 13696, 2, 132) == (2, 2560)
+
+
+# (B, KVH) of K1's served grids: TinyLlama (4 kv heads) at B=8 and 64,
+# LLaMA-2-7B / InternLM-7B (32) and Baichuan-13B (40) at B=8 and 16, the
+# GPU tests' small grids
+DECODE_GRIDS = [(8, 4), (64, 4), (8, 32), (16, 32), (8, 40), (16, 40),
+                (1, 1), (3, 2), (2, 1)]
+
+
+@pytest.mark.parametrize("b,kvh", DECODE_GRIDS)
+@pytest.mark.parametrize("p", [1, 4, 64])        # page-table width, pages
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_decode_splits_cover_the_table_in_whole_pages(b, kvh, p, num_sms):
+    s = pk.plan_decode_splits(b, kvh, p, num_sms)
+    assert 1 <= s <= p
+    if b * kvh >= num_sms:
+        assert s == 1                                 # the grid fills the card
+    else:
+        assert b * kvh * s >= min(pk.CTAS_PER_SM * num_sms, b * kvh * p)
+    for n_pages in sorted({p, p // 2, 1, 0}):
+        ranges = [pk.split_pages(n_pages, s, z) for z in range(s)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n_pages
+        assert all(lo <= hi for lo, hi in ranges)
+        assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+        # every non-empty split the same whole number of pages, but the last
+        sizes = [hi - lo for lo, hi in ranges if hi > lo]
+        assert len(set(sizes[:-1])) <= 1 and sizes[-1:] <= sizes[:1]
+
+
+def test_decode_splits_at_served_sizes():
+    """TinyLlama's B=8 grid (32 CTAs) is split for about two CTAs a SM of
+    an H100; the 7B and 13B grids at B=8 fill the card unsplit."""
+    assert pk.plan_decode_splits(8, 4, 64, 132) == 9
+    assert pk.plan_decode_splits(8, 32, 64, 132) == 1
+    assert pk.plan_decode_splits(8, 40, 64, 132) == 1
+    assert pk.plan_decode_splits(64, 4, 64, 132) == 1
+    # a 433-token row in 128-token pages: 4 pages, one a split, 5 empty
+    assert [pk.split_pages(4, 9, z) for z in range(9)] == (
+        [(0, 1), (1, 2), (2, 3), (3, 4)] + [(4, 4)] * 5)
 
 
 def _src_tree(tmp_path, monkeypatch):

@@ -15,7 +15,10 @@ phase as K1; w4a8 within
 order) and, in bf16, within 2^-8 |ref| + 1e-5 max|ref| per element.
 K1/K2 with ALiBi: f32 atol 2e-4 (the JAX package's ALiBi tolerance; the
 scores carry slope * k_pos, up to ~270 at 13B widths, whose f32 ulp is
-~3e-5), bf16 as without. K5 (the page read) exact.
+~3e-5), bf16 as without. K5 (the page read) exact. K1's tensor-core
+body (bf16 q, the context split over S CTAs) at chip_smoke's bf16 limits,
+3e-2 and, with ALiBi, 3e-2 + 2^-7 |ref|, and bit-equal to itself across
+two runs and a CUDA graph replay.
 """
 
 import numpy as np
@@ -569,3 +572,114 @@ def test_prefill_tc_kernel_matches_plain(cuda, dtype, hq, kvh, hd, quant,
     tols = ALIBI_TOLS if alibi else TOLS
     torch.testing.assert_close(out.float(), ref.float(), **tols[dtype])
     assert bool((out[3] == 0).all()) and bool((out[1, 64:] == 0).all())
+
+
+# K1's tensor-core body (bf16 q): (Hq, KVH) for G = 1 and G = 8, at the
+# head dims of the GPU tests and of serving
+DEC_TC_GROUPS = {1: (4, 4), 8: (16, 2)}
+# cached tokens (ctx - 1) 0, 16, 32, 64 (whole pages of 16: split
+# boundaries at S = 2), 1 page only (split 1 past it at S = 2), longer
+# rows ending mid-page, and a padding row
+DEC_TC_CTX = [0, 1, 17, 33, 65, 160, 300, 129]
+BF16_TOL = 3e-2          # chip_smoke's bf16 limit; ALiBi adds 2^-7 |ref|
+
+
+def _decode_tc_case(dev, hd, g, quant, mode, seed=30):
+    """Inputs of one K1 call, as keyword arguments for the kernel and the
+    plain version: ``mode`` is "deferred", "alibi", "tail" (5 of J = 8
+    side-buffer rows live) or "alibi_tail" (7 live)."""
+    hq, kvh = DEC_TC_GROUPS[g]
+    spec = CacheSpec(num_layers=2, num_pages=40, page_size=16,
+                     num_kv_heads=kvh, head_dim=hd,
+                     quant_bit=8 if quant else 0,
+                     quant_group=8 if quant else 1, dtype=torch.bfloat16)
+    if quant:
+        cache, scale = make_int8_cache(spec, dev, seed)
+    else:
+        cache, scale = make_cache(spec, dev, seed), None
+    ctx = torch.tensor(DEC_TC_CTX, dtype=torch.int32, device=dev)
+    b = ctx.numel()
+    rng = np.random.default_rng(seed)
+    pt = torch.from_numpy(rng.integers(0, 40, (b, 20)).astype(
+        np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = torch.randn((b, hq, hd), generator=gen, device=dev).to(torch.bfloat16)
+    fk = torch.randn((b, kvh, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    fv = torch.randn((b, kvh, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kw = dict(layer=1, fresh_k=fk, fresh_v=fv)
+    if "alibi" in mode:
+        kw["alibi"] = attn_ops.alibi_slopes(hq).to(dev)
+    if "tail" in mode:
+        tkv, tscale = make_tail(spec, b, 8, dev, seed + 2)
+        kw.update(tail_kv=tkv, tail_scale=tscale, tail_len=torch.full(
+            (1,), 7 if "alibi" in mode else 5, dtype=torch.int32,
+            device=dev))
+    return (q, cache, scale, pt, ctx, spec), kw
+
+
+@pytest.mark.parametrize("splits", [1, 2, None], ids=["S1", "S2", "planned"])
+@pytest.mark.parametrize("mode", ["deferred", "alibi", "tail", "alibi_tail"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16_kv", "int8_kv"])
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_decode_tc_kernel_matches_plain(cuda, hd, g, quant, mode, splits):
+    """K1's tensor-core body against the plain version at forced S = 1, 2
+    and the planned S, over rows with 0, 1, a split boundary's worth and
+    a page's worth of cached tokens; within chip_smoke's bf16 limits."""
+    args, kw = _decode_tc_case(cuda, hd, g, quant, mode)
+    before = pk.paged_decode_attention.launches
+    out = pk.paged_decode_attention(*args, splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert pk.paged_decode_attention.launches == before + 1
+    ctx = args[4]
+    ref = attn_ops.decode_attention_ref(*args, **kw)
+    ref = torch.where((ctx > 0)[:, None, None], ref, torch.zeros(
+        (), dtype=ref.dtype, device=cuda)).float()
+    lim = BF16_TOL + (2.0 ** -7 * ref.abs() if "alibi" in mode else 0.0)
+    diff = (out.float() - ref).abs()
+    assert bool((diff <= lim).all()), float(diff.max())
+    assert bool((out[ctx == 0] == 0).all())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16_kv", "int8_kv"])
+def test_decode_tc_kernel_is_repeatable_and_graph_safe(cuda, quant):
+    """With the context split (S > 1, the last CTA of a row merging the
+    partials in split order), two runs give the same bits, and so does a
+    CUDA graph replay of the same call."""
+    args, kw = _decode_tc_case(cuda, 64, 8, quant, "alibi_tail", seed=40)
+    b, kvh = args[0].shape[0], args[5].num_kv_heads
+    splits = pk.plan_decode_splits(b, kvh, args[3].shape[1], 132)
+    assert splits > 1
+
+    def run():
+        return pk.paged_decode_attention(*args, splits=splits, **kw)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), replayed.view(torch.int16))
+
+
+def test_decode_tc_kernel_checks_its_group(cuda):
+    """The tensor-core body takes at most 16 query heads a kv head and the
+    head dims it is built for."""
+    spec = CacheSpec(num_layers=1, num_pages=4, page_size=16, num_kv_heads=1,
+                     head_dim=16, dtype=torch.bfloat16)
+    cache = make_cache(spec, cuda, 0)
+    pt = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    ctx = torch.ones(1, dtype=torch.int32, device=cuda)
+    q = torch.zeros((1, 32, 16), dtype=torch.bfloat16, device=cuda)
+    f = torch.zeros((1, 1, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="group 32"):
+        pk.paged_decode_attention(q, cache, None, pt, ctx, spec, layer=0,
+                                  fresh_k=f, fresh_v=f)
+    with pytest.raises(ValueError, match="splits"):
+        pk.paged_decode_attention(q[:, :16], cache, None, pt, ctx, spec,
+                                  layer=0, fresh_k=f, fresh_v=f, splits=0)

@@ -84,8 +84,9 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 def test_cpu_engine_builds():
     mc, rc, gc = tiny_cfgs(device="cpu")
-    engine, kv_max = create_engine(mc, rc, gc)
+    engine, kv_max, max_running_batch = create_engine(mc, rc, gc)
     assert kv_max == 1024
+    assert max_running_batch == gc.max_running_batch
     assert engine.kv_cache.device.type == "cpu"
     assert engine.kv_scale is None
 
@@ -94,7 +95,7 @@ def test_cpu_engine_builds_w4a8_int8_kv():
     mc = ModelConfig.from_params_json(TINY_INT8KV)
     rc = ResourceConfig(device="cpu", kv_cache_max_tokens=1024,
                         quant_method="online_w4a8", quantize_lm_head=True)
-    engine, _ = create_engine(mc, rc, GeneratorConfig(max_running_batch=4))
+    engine, _, _ = create_engine(mc, rc, GeneratorConfig(max_running_batch=4))
     assert engine.kv_cache.dtype == torch.int8
     assert engine.kv_scale.dtype == torch.bfloat16
     assert engine.kv_scale.shape[0] == engine.kv_cache.shape[1]
