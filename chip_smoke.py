@@ -20,10 +20,10 @@ bucket grid validated before serving. The KV-write microbench drives K5
 through its own entry point.
 
 1. the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-   and counts the tensor-core instructions (cuobjdump -sass) of K3's two
-   tiles (IMMA) and K1's and K2's bf16 bodies (HMMA), failing if any is
-   0;
+2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel),
+   prints each kernel's registers and spills, and counts the tensor-core
+   instructions (cuobjdump -sass) of K3's and K4's two tiles each (IMMA)
+   and K1's and K2's bf16 bodies (HMMA), failing if any is 0;
 3. one phase per kernel at each path's shapes: kernel vs its plain
    PyTorch version on the same inputs with the stated tolerance, kernel
    ms, plain ms, the least time the card could take (bound), and one
@@ -31,7 +31,8 @@ through its own entry point.
    (never called by the port; none exists for K4, which gets torch._int_mm
    on the unpacked int8 weight as an orientation figure only); K1 also in
    block-tail mode; K1/K2 with ALiBi (SDPA with the bias as its mask);
-   K5 exact; K1's rows also print the context splits S of their grid;
+   K5 exact; K1's rows print the context splits S of their grid, K3's
+   and K4's split-K rows their pieces S, each repeatable bit for bit;
 4. step cross-checks: 2-layer models at full width, same weights on cuda
    (kernels) and cpu (plain versions), one mixed decode+prefill step in
    float32: logits within tolerance, greedy tokens equal, written cache
@@ -45,7 +46,8 @@ through its own entry point.
    (every program key eager once, then captured as a CUDA graph), with
    every kernel's launch counter set to 0 just before and read just
    after (also the engine's graph replays, the bytes its graph pools
-   hold, and its device-fed or continuation dispatches); then a
+   hold, and its device-fed or continuation dispatches; the weight
+   build's own peak and the free memory after it); then a
    torch.profiler pass over the same traffic for the device-time
    breakdown. The six paths pin their KV pools and capture each program
    key at its second visit; the seventh sizes its pool after validating
@@ -218,14 +220,16 @@ def kernel_name(mangled):
 
 def tensor_core_check():
     """The tensor-core instructions in the SASS of the redesigned
-    kernels: IMMA in both of K3's tiles, HMMA in K1's and K2's bf16
-    bodies."""
+    kernels: IMMA in both of K3's and both of K4's tiles, HMMA in K1's
+    and K2's bf16 bodies."""
     from ppl.llm.serving_tpu_torch.ops.kernels import _build
     sass = {src: _build.sass_counts(src)
             for src in ("quant_matmul", "paged_attention")}
     for what, src, kernel, op in (
             ("K3 prefill tile", "quant_matmul", "i8i8_prefill_kernel", "IMMA"),
             ("K3 decode tile", "quant_matmul", "i8i8_decode_kernel", "IMMA"),
+            ("K4 prefill tile", "quant_matmul", "w4a8_prefill_kernel", "IMMA"),
+            ("K4 decode tile", "quant_matmul", "w4a8_decode_kernel", "IMMA"),
             ("K1 bf16 body", "paged_attention", "paged_decode_tc_kernel",
              "HMMA"),
             ("K1 f32 body (SIMT)", "paged_attention", "paged_decode_kernel",
@@ -826,14 +830,17 @@ def page_read_cases(torch, timer, cache_read):
 
 
 def w4a8_cases(torch, timer, qk, quant_ops):
-    """K4 at the LLaMA-2-7B widths: each weight at a decode (T=8) and a
-    prefill (T=1024) size, with bf16 and f32 out. f32 holds 1e-5 of
-    max|ref| (the groups' partial sums are added in another order); bf16
-    2^-8 |ref| + 1e-5 max|ref| per element (one bf16 rounding more)."""
+    """K4 at the LLaMA-2-7B widths: each weight at decode (T=1, 8, 16)
+    and prefill (T=1024, and 4,096 for gate|up: the 7B prefill step)
+    sizes, with bf16 and f32 out. f32 holds 1e-5 of max|ref| (the groups'
+    partial sums are added in another order); bf16 2^-8 |ref| + 1e-5
+    max|ref| per element (one bf16 rounding more). Where the decode tile
+    cuts K into S > 1 pieces, two runs must give the same bits."""
     d, inter = LLAMA7B["hidden_dim"], LLAMA7B["intermediate_dim"]
     hq, kvh, hd, _ = geometry(LLAMA7B)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     weights = [("wqkv", (d, kvh, hq // kvh + 2, hd)), ("wo", (d, d)),
                ("gate|up", (d, 2, inter)), ("down", (inter, d)),
                ("lm_head", (d, LLAMA7B["vocab_size"]))]
@@ -858,11 +865,12 @@ def w4a8_cases(torch, timer, qk, quant_ops):
               if wp.ndim == 3 else quant_ops.unpack_int4(wp.reshape(d2, n)))
         wu_cm = wu.t().contiguous().t()
         del wu
-        for t in (8, 1024):
+        for t in (1, 8, 16, 1024) + ((4096,) if name == "gate|up" else ()):
             x = torch.randn((t, k_dim), generator=g, device=dev,
                             dtype=torch.bfloat16)
             ref = quant_ops.w4a8_matmul(x, wp, ws)
             scale = float(ref.abs().max())
+            splits, _ = qk.plan_split_k_w4(t, d2, n, c, sms, k_dim // groups)
             xq, _ = quant_ops.quantize_activation(x)
             rows = max(t, 32)   # _int_mm needs more than 16 rows
             xq_lib = torch.zeros((rows, k_dim), dtype=torch.int8, device=dev)
@@ -880,16 +888,22 @@ def w4a8_cases(torch, timer, qk, quant_ops):
                 def plain(out_dtype=out_dtype):
                     return quant_ops.w4a8_matmul(x, wp, ws).to(out_dtype)
 
-                out = kern().float()
+                out, again = kern(), kern()
                 torch.cuda.synchronize()
+                bf = out_dtype == torch.bfloat16
+                if splits > 1:
+                    bits = torch.int16 if bf else torch.int32
+                    check(torch.equal(out.view(bits), again.view(bits)),
+                          f"K4 {name} T={t} S={splits}: two runs differ")
+                out = out.float()
                 diff = (out - ref).abs()
                 err = float(diff.max())
-                bf = out_dtype == torch.bfloat16
                 lim = W4_REL * scale + (2.0 ** -8 * ref.abs() if bf else 0.0)
                 check(bool((diff <= lim).all()),
                       f"K4 {name} T={t} {'bf16' if bf else 'f32'}: max|diff| "
                       f"{err} beyond {'2^-8 |ref| + ' if bf else ''}"
                       f"{W4_REL:g} * max|ref| ({scale:.4g})")
+                del out, again, diff
                 osz = 2 if bf else 4
                 bytes_moved = (k_dim * c * n // 2 + c * groups * n * 4
                                + t * k_dim * 2 + c * t * n * osz)
@@ -902,7 +916,8 @@ def w4a8_cases(torch, timer, qk, quant_ops):
                     tol=f"{'2^-8|ref|+' if bf else ''}{W4_REL:g}*max|ref|",
                     ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
                     library_ms=None, orientation_int_mm_ms=orient,
-                    bound_ms=bms, bound_by=by)))
+                    bound_ms=bms, bound_by=by,
+                    **({"splits": splits} if t <= qk.DECODE_MAX_T else {}))))
             del ref, xq_lib
         del wp, ws, wu_cm
         torch.cuda.empty_cache()
@@ -1308,6 +1323,17 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         f"({'auto-sized' if auto else 'explicit'}); free {free >> 20} MiB "
         f"of {total >> 20} MiB before weights; peak "
         f"{torch.cuda.max_memory_allocated() >> 20} MiB while building")
+    # the weight build (each layer quantized as it is drawn): its own
+    # peak, and what stays missing from the free memory after it
+    free_wb = engine.free_before_weights_bytes
+    free_wa = engine.free_after_weights_bytes
+    missing = free_wb - nbytes - free_wa
+    log(f"[e2e {label}] weight build: its own peak "
+        f"{engine.weight_build_peak_bytes >> 20} MiB for {nbytes >> 20} MiB "
+        f"of weights; free {free_wa >> 20} MiB after the weights, "
+        f"{free_wb >> 20} MiB before less the weights would be "
+        f"{(free_wb - nbytes) >> 20} MiB ({missing >> 20} MiB missing) on "
+        f"{name_limit}")
     if auto:
         log(f"[e2e {label}] bucket grid validated before serving: batch "
             f"buckets {engine.batch_buckets}, max_running_batch "
@@ -1453,6 +1479,9 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
             log(f"[e2e {label} profile]   {dev_us / 1e3:9.2f} ms  {cnt:6d}  "
                 f"{key[:90]}")
         return dict(path=label, launches=counts, elapsed_s=elapsed,
+                    weight_build_peak_mib=engine.weight_build_peak_bytes >> 20,
+                    free_after_weights_mib=free_wa >> 20,
+                    weights_missing_mib=missing >> 20,
                     gen_tok_per_s=n_tok / elapsed, prompt_tokens=prompt_tok,
                     setup_s=setup_s, profiled_wall_ms=p_elapsed * 1e3,
                     device_busy_ms=busy_ms, dispatches=dispatches,

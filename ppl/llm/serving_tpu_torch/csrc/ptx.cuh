@@ -1,6 +1,6 @@
 // Inline PTX shared by the kernels of this directory: cp.async copies into
-// shared memory, ldmatrix fragment loads, the int8 and bf16 tensor-core
-// mma.sync shapes, and the once-per-size shared-memory limit.
+// shared memory, ldmatrix fragment loads, the int8 (k32 and k16) and bf16
+// tensor-core mma.sync shapes, and the once-per-size shared-memory limit.
 //
 // mma.sync fragments (PTX ISA, "Matrix fragments for mma.m16n8k16/k32"):
 // in units of 32-bit registers both shapes below are the same 16 x 8-word
@@ -74,6 +74,17 @@ __device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[16x8 s32] += a[16x16 s8] * b[16x8 s8]: the k16 shape, A in two
+// registers (a0: row g, a1: row g + 8, word tig), B in one (word tig)
+__device__ __forceinline__ void mma_s8_k16(int* d, uint32_t a0, uint32_t a1,
+                                           uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // d[16x8 f32] += a[16x16 bf16] * b[16x8 bf16]

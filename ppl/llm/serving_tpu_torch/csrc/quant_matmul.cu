@@ -72,20 +72,51 @@
 // scale per (group of GROUP contraction rows, column). Packed byte i of a
 // column holds row i in its low nibble and row i + D/2 in its high one,
 // so packed rows [g*GROUP, (g+1)*GROUP) carry group g in their low
-// nibbles and group g + G/2 in their high ones. Each CTA streams every
-// weight byte once: per packed group chunk it stages the [GROUP, BN]
-// bytes transposed (as K3), splits each 4-byte word into a low and a high
-// word of sign-extended nibbles (__vsub4), and runs two dp4a chains, one
-// against x[:, g*GROUP + k] and one against x[:, D/2 + g*GROUP + k].
-// Inside a group the int32 sums are exact (|sum| <= 128*7*127); each is
-// scaled by its group's scale in f32 and added to the f32 accumulator
-// (rounded multiply, rounded add, as the plain version does; the groups
-// are added in the order g, g + G/2, g + 1, ... rather than the plain
-// version's 0, 1, ..., so the two agree to f32 rounding, not bit for
-// bit). The epilogue multiplies by the token scale and writes out_dtype.
-// Bound: bytes at decode sizes (D*N/2 weight bytes per call, a quarter
-// of bf16's), int8 tensor-core operations at prefill sizes, like K3; the
-// same SIMT dp4a design leaves it far from both.
+// nibbles and group g + G/2 in their high ones. Inside a group the int32
+// sums are exact; each is scaled by its group's scale and added to an f32
+// running sum (one fused multiply-add), the groups in the order of the
+// stages (g, g + 1, ... of the low nibbles, then of the high ones, stage
+// by stage) rather than the plain version's 0, 1, ..., so the two agree
+// to f32 rounding, not bit for bit; the sum is multiplied by the token
+// scale and written in out_dtype.
+//
+// What bounds it on an H100: at decode sizes bytes, D*N/2 weight bytes
+// plus (D/GROUP)*N*4 of scales (an eighth more at group 64), half of
+// K3's for the same work; at prefill sizes int8 tensor-core operations.
+//
+// Design (the quantize pass, then one of two tiles on the int8 tensor
+// cores, mma.sync m16n8k32 s8, m16n8k16 at group 16, from K3's N-major
+// weight staging and 4x4 transpose):
+// - A stage holds KSP = max(GROUP, 64) packed rows (whole groups) of 128
+//   columns, the activation bytes of both column ranges they meet
+//   (x[:, k0 + ...] and x[:, D/2 + k0 + ...], each 16-byte chunk whole,
+//   masked past the piece's end) and the stage's group scales, all by
+//   16-byte cp.async into one ring.
+// - Unpack in registers after the transpose: a transposed packed k-word
+//   gives the operand of group g as (w << 4) & 0xF0F0F0F0 and that of
+//   group g + G/2 as w & 0xF0F0F0F0 -- int8 lanes holding exactly 16 * q,
+//   two instructions at most. The int32 sum is then 16 * p (|16 p| < 2^21)
+//   and the f32 running sum 16 times the true one, bit for bit (scaling
+//   by 16 commutes with rounding); the end multiplies by 1/16 exactly.
+// - Per group, on the CUDA cores: int32 -> f32 (exact, one I2FP), then
+//   an FFMA with the scale; then the int32 sum restarts.
+// - Prefill (T > 16): a 128 x 128 CTA tile on 16 warps of 32 x 32 (the
+//   int32 group sum beside the f32 running sum: 64 accumulator registers
+//   a thread), a 4-stage ring (3 at group 128), CTAs in M-fastest groups
+//   sharing weight tiles through L2 as K3's prefill tile. Activations are
+//   the A operand, the weight the B operand: once a stage has landed, the
+//   CTA transposes and unpacks its packed tile once into k-major int8 rows
+//   of both halves in shared memory, from which every warp reads its B
+//   fragments with plain loads (four warps share each column span).
+// - Decode (T <= 16): byte-bound, so the weight is the A (m16) side and
+//   the tokens one or two n8 tiles; 4 warps of 32 columns, a 4-stage
+//   ring. Split-K: the host planner cuts the packed rows into pieces of
+//   whole stages so that every weight gives at least two CTAs per SM.
+//   Group scales make the partial sums f32, so each piece writes its
+//   partial to a workspace [S, C, T, N] and the last CTA of a column tile
+//   to arrive (a counter) adds the S partials in piece order -- the same
+//   bits on every run and in a CUDA graph replay -- and puts its counter
+//   back to zero, so the counters need no memset per call.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -96,12 +127,6 @@
 namespace {
 
 using namespace ppl_ptx;
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 constexpr int kQuantThreads = 512;
 
@@ -164,8 +189,6 @@ __global__ void __launch_bounds__(kQuantThreads) quantize_rows_kernel(
   for (int i = nq + threadIdx.x; i < ld / 4; i += blockDim.x) qrow[i] = 0;
   if (threadIdx.x == 0) xs[t] = scale;
 }
-
-constexpr int kGemmThreads = 256;   // K4's SIMT tile
 
 // 4x4 int8 block transpose: w0..w3 are rows k..k+3 (4 columns each);
 // returns in c[i] the 4 k-bytes of column i.
@@ -593,154 +616,556 @@ int launch_i8i8(const int8_t* xq, int ldx, const float* xs, const int8_t* w,
 #undef PPL_DECODE_TILE
 }
 
-// Sign-extended nibbles of four packed bytes: the low nibbles and the high
-// nibbles, each as four int8 lanes of a word (for __dp4a).
-__device__ __forceinline__ int low_nibbles(unsigned int w) {
-  return (int)__vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+// ---------------------------------------------------------------- K4 tiles
+
+constexpr int kW4Stage = 64;  // packed rows a stage at groups up to 64
+
+// K4's per-group constants: a stage holds KSP packed rows (whole groups,
+// at least 64), so GPS groups of each nibble half
+template <int GROUP> struct W4 {
+  static constexpr int KSP = GROUP > kW4Stage ? GROUP : kW4Stage;
+  static constexpr int GPS = KSP / GROUP;
+  static constexpr int HC = KSP / 16;          // 16-byte chunks a half row
+  static constexpr int WT = KSP * kTileN;      // packed weight tile, bytes
+  static constexpr int ST = 2 * GPS * kTileN * 4;  // scales [2][GPS][128] f32
+};
+
+// The int8 operand of one nibble half of a packed k-word, times 16: the
+// low nibbles (half 0) or the high ones (half 1) moved to the top of each
+// byte, whose int8 value is then exactly 16 * q. The group's int32 sum is
+// 16 * p, |16 p| <= 128 * 128 * 127 < 2^21.
+__device__ __forceinline__ uint32_t nibbles_x16(uint32_t w, int half) {
+  return (half ? w : w << 4) & 0xF0F0F0F0u;
 }
-__device__ __forceinline__ int high_nibbles(unsigned int w) {
-  return (int)__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+
+// int32 -> f32, exact for |p| <= 2^24: one I2FP.F32.S32 on sm_90, an
+// integer-pipe conversion (no multi-cycle I2F); cheaper in the hot loop
+// than the integer add and float subtract of the 0x4B400000 trick
+__device__ __forceinline__ float exact_float(int p) {
+  return __int2float_rn(p);
 }
 
-template <int GROUP, int BM, int BN, int TM, int TN, typename TO>
-__global__ void __launch_bounds__(kGemmThreads) w4a8_gemm_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ xs,
-    const int8_t* __restrict__ w, const float* __restrict__ ws,
-    TO* __restrict__ out, int T, int D, int N) {
-  static_assert((BM / TM) * (BN / TN) == kGemmThreads, "thread tiling");
-  constexpr int KW = GROUP / 4;  // int32 words per group row
-  __shared__ int xlo_s[BM][KW + 1];
-  __shared__ int xhi_s[BM][KW + 1];
-  __shared__ int wlo_s[BN][KW + 1];
-  __shared__ int whi_s[BN][KW + 1];
-  const int c = blockIdx.z;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int D2 = D / 2;
-  const int GH = D2 / GROUP;     // groups per half of the contraction
-  const int8_t* wc = w + (size_t)c * D2 * N;
-  const float* wsc = ws + (size_t)c * 2 * GH * N;
-  const int tid = threadIdx.x;
-  constexpr int kNT = BN / TN;
-  const int tn = tid % kNT, tm = tid / kNT;
+// the x16 running sum times the token scale: (acc / 16) * sx, the
+// division by 16 exact
+__device__ __forceinline__ float w4_final(float acc, float sx) {
+  return __fmul_rn(__fmul_rn(acc, 0.0625f), sx);
+}
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+// Weight rows [k0, k0 + KS) x columns [n0, n0 + kTileN) as load_wtile,
+// with the copy width chosen at run time (16 bytes when N % 16 == 0)
+template <int NTHREADS, int KS>
+__device__ __forceinline__ void load_wtile_any(int8_t* tile, const int8_t* wc,
+                                               int k0, int k_end, int n0,
+                                               int N, int tid) {
+  if (N % 16 == 0)
+    load_wtile<16, NTHREADS, KS>(tile, wc, k0, k_end, n0, N, tid);
+  else
+    load_wtile<4, NTHREADS, KS>(tile, wc, k0, k_end, n0, N, tid);
+}
 
-  for (int g = 0; g < GH; ++g) {
-    const int k0 = g * GROUP;
-    for (int e = tid; e < BM * KW; e += kGemmThreads) {
-      const int m = e / KW, kw = e - m * KW;
-      int lo = 0, hi = 0;
-      if (m0 + m < T) {
-        const int8_t* xr = xq + (size_t)(m0 + m) * D + k0 + 4 * kw;
-        lo = *reinterpret_cast<const int*>(xr);
-        hi = *reinterpret_cast<const int*>(xr + D2);
-      }
-      xlo_s[m][kw] = lo;
-      xhi_s[m][kw] = hi;
-    }
-    for (int e = tid; e < KW * (BN / 4); e += kGemmThreads) {
-      const int kb = e / (BN / 4), nb = e - kb * (BN / 4);
-      const int k = k0 + 4 * kb, n = n0 + 4 * nb;
-      int r[4] = {0, 0, 0, 0};
-      if (n < N) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          r[i] = *reinterpret_cast<const int*>(wc + (size_t)(k + i) * N + n);
-      }
-      int col[4];
-      transpose4x4(r[0], r[1], r[2], r[3], col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wlo_s[4 * nb + i][kb] = low_nibbles((unsigned int)col[i]);
-        whi_s[4 * nb + i][kb] = high_nibbles((unsigned int)col[i]);
-      }
-    }
-    __syncthreads();
-    int plo[TM][TN], phi[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) plo[i][j] = phi[i][j] = 0;
-#pragma unroll 4
-    for (int kw = 0; kw < KW; ++kw) {
-      int alo[TM], ahi[TM], blo[TN], bhi[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        alo[i] = xlo_s[tm + i * (BM / TM)][kw];
-        ahi[i] = xhi_s[tm + i * (BM / TM)][kw];
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        blo[j] = wlo_s[tn + j * kNT][kw];
-        bhi[j] = whi_s[tn + j * kNT][kw];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          plo[i][j] = __dp4a(alo[i], blo[j], plo[i][j]);
-          phi[i][j] = __dp4a(ahi[i], bhi[j], phi[i][j]);
-        }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn + j * kNT;
-      const float slo = n < N ? wsc[(size_t)g * N + n] : 0.f;
-      const float shi = n < N ? wsc[(size_t)(g + GH) * N + n] : 0.f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn((float)plo[i][j], slo));
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn((float)phi[i][j], shi));
-      }
-    }
+// A stage's group scales: rows g0 + i (low half) and GH + g0 + i (high
+// half), i < GPS, columns [n0, n0 + kTileN), as [2][GPS][kTileN] f32;
+// groups at or past g_end and columns past N land as zeros
+template <int GPS, int NTHREADS>
+__device__ __forceinline__ void load_scales(float* st, const float* wsc,
+                                            int g0, int g_end, int GH,
+                                            int n0, int N, int tid) {
+  for (int e = tid; e < 2 * GPS * (kTileN / 4); e += NTHREADS) {
+    const int r = e / (kTileN / 4), q = e % (kTileN / 4);
+    const int gg = g0 + r % GPS, n = n0 + 4 * q;
+    const bool ok = gg < g_end && n < N;
+    cp_async16(smem_u32(st + r * kTileN + 4 * q),
+               ok ? wsc + (size_t)((r / GPS) * GH + gg) * N + n : wsc,
+               ok ? 16 : 0);
   }
+}
 
-  TO* oc = out + (size_t)c * T * N;
+// --- prefill tile: 128 tokens x 128 columns, 16 warps of 32 x 32
+
+constexpr int kW4PfThreads = 512;
+
+template <int GROUP> __host__ __device__ constexpr int w4_pf_stages() {
+  return GROUP > kW4Stage ? 3 : 4;   // the ring's depth (227 KB in all)
+}
+template <int GROUP> __host__ __device__ constexpr int w4_pf_atile() {
+  return kPfBM * 2 * W4<GROUP>::KSP;   // activation tile: low | high
+}
+template <int GROUP> __host__ __device__ constexpr int w4_pf_stage() {
+  return w4_pf_atile<GROUP>() + W4<GROUP>::WT + W4<GROUP>::ST;
+}
+template <int GROUP> __host__ __device__ constexpr int w4_pf_smem() {
+  // the ring, then the unpacked weight tile (kTileN rows of 2*KSP bytes)
+  return w4_pf_stages<GROUP>() * w4_pf_stage<GROUP>() +
+         kTileN * 2 * W4<GROUP>::KSP;
+}
+
+// activation tile row: the KSP bytes of x[t, k0 + ...] then those of
+// x[t, D/2 + k0 + ...]; the unpacked weight tile's rows likewise (one
+// column's 16 * q of both nibble halves, k-contiguous). Chunks XOR-
+// swizzled by row % 8: conflict-free fragment loads, as atile_offset.
+template <int KSP>
+__device__ __forceinline__ int w4_atile_offset(int row, int chunk) {
+  return row * 2 * KSP + ((chunk ^ (row & 7)) << 4);
+}
+
+// Unpack a stage's packed weight tile (N-major, as load_wtile lays it)
+// into k-major int8 rows of both nibble halves, times 16, in ut: column
+// span*32 + 4j + i lands in row span*32 + 8i + j, so a warp's fragment i
+// reads rows 8i + g (g = lane / 4) of its span, conflict-free. Each
+// thread transposes 4x4-byte blocks: lanes (r, j) = (lane / 8, lane % 8)
+// of a warp read rows 4*rb + 0..3 of column quad span*8 + j (the
+// swizzle puts the four rb in four bank groups) and write words rb % 4
+// of 8 different rows (conflict-free).
+template <int KSP, int NTHREADS>
+__device__ __forceinline__ void w4_unpack_tile(int8_t* ut, const int8_t* wt,
+                                               int tid) {
+  constexpr int HC = KSP / 16;
+  for (int e = tid; e < KSP * (kTileN / 4) / 4; e += NTHREADS) {
+    const int lane = e & 31, wq = e >> 5;
+    const int span = wq & 3, rb = (wq >> 2) * 4 + (lane >> 3), j = lane & 7;
+    int w[4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + tm + i * (BM / TM);
-    if (m >= T) continue;
-    const float sx = xs[m];
+    for (int r = 0; r < 4; ++r)
+      w[r] = *reinterpret_cast<const int*>(
+          wt + wtile_offset(4 * rb + r, 2 * span + (j >> 2)) + (j & 3) * 4);
+    int col[4];
+    transpose4x4(w[0], w[1], w[2], w[3], col);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn + j * kNT;
-      if (n < N) oc[(size_t)m * N + n] = from_f<TO>(acc[i][j] * sx);
+    for (int i = 0; i < 4; ++i) {
+      const int row = span * 32 + 8 * i + j;
+      *reinterpret_cast<uint32_t*>(
+          ut + w4_atile_offset<KSP>(row, rb >> 2) + (rb & 3) * 4) =
+          nibbles_x16((uint32_t)col[i], 0);
+      *reinterpret_cast<uint32_t*>(
+          ut + w4_atile_offset<KSP>(row, HC + (rb >> 2)) + (rb & 3) * 4) =
+          nibbles_x16((uint32_t)col[i], 1);
     }
   }
 }
 
 template <int GROUP, typename TO>
-void launch_w4a8(const int8_t* xq, const float* xs, const int8_t* w,
-                 const float* ws, void* out, int T, int D, int N, int C,
-                 cudaStream_t s) {
-  if (T <= 16) {
-    dim3 grid((N + 31) / 32, (T + 15) / 16, C);
-    w4a8_gemm_kernel<GROUP, 16, 32, 1, 2, TO><<<grid, kGemmThreads, 0, s>>>(
-        xq, xs, w, ws, (TO*)out, T, D, N);
-  } else {
-    dim3 grid((N + 63) / 64, (T + 63) / 64, C);
-    w4a8_gemm_kernel<GROUP, 64, 64, 4, 4, TO><<<grid, kGemmThreads, 0, s>>>(
-        xq, xs, w, ws, (TO*)out, T, D, N);
+__global__ void __launch_bounds__(kW4PfThreads, 1) w4a8_prefill_kernel(
+    const int8_t* __restrict__ xq, int ldx, const float* __restrict__ xs,
+    const int8_t* __restrict__ w, const float* __restrict__ ws,
+    TO* __restrict__ out, int T, int D2, int N) {
+  using P = W4<GROUP>;
+  constexpr int KSP = P::KSP, GPS = P::GPS, HC = P::HC;
+  constexpr int kStages = w4_pf_stages<GROUP>();
+  constexpr int kA = w4_pf_atile<GROUP>(), kStage = w4_pf_stage<GROUP>();
+  extern __shared__ __align__(16) int8_t smem[];
+  int8_t* ut = smem + kStages * kStage;   // the unpacked weight tile
+  const int c = blockIdx.y;
+  const int m_tiles = (T + kPfBM - 1) / kPfBM;
+  const int n_tiles = (N + kTileN - 1) / kTileN;
+  const int group = kGroupM * n_tiles;
+  const int first_m = (int)blockIdx.x / group * kGroupM;
+  const int group_m = min(m_tiles - first_m, kGroupM);
+  const int in_group = (int)blockIdx.x % group;
+  const int m0 = (first_m + in_group % group_m) * kPfBM;
+  const int n0 = in_group / group_m * kTileN;
+  const int GH = D2 / GROUP;
+  const int8_t* wc = w + (size_t)c * D2 * N;
+  const float* wsc = ws + (size_t)c * 2 * GH * N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 32-row slice, 32-column span
+  const int g = lane >> 2, tig = lane & 3;
+  const int ktiles = (D2 + KSP - 1) / KSP;
+
+  auto load_stage = [&](int kt) {
+    int8_t* a_t = smem + (kt % kStages) * kStage;
+    const int k0 = kt * KSP;
+    for (int e = tid; e < kPfBM * 2 * HC; e += kW4PfThreads) {
+      const int row = e / (2 * HC), ch = e % (2 * HC);
+      const int kc = k0 + (ch % HC) * 16, t = m0 + row;
+      const bool ok = t < T && kc < D2;
+      cp_async16(smem_u32(a_t + w4_atile_offset<KSP>(row, ch)),
+                 ok ? xq + (size_t)t * ldx + (ch / HC) * D2 + kc : xq,
+                 ok ? 16 : 0);
+    }
+    load_wtile_any<kW4PfThreads, KSP>(a_t + kA, wc, k0, D2, n0, N, tid);
+    load_scales<GPS, kW4PfThreads>(
+        reinterpret_cast<float*>(a_t + kA + P::WT), wsc, k0 / GROUP, GH, GH,
+        n0, N, tid);
+  };
+
+  float f[2][4][4];  // x16 running sums [m16 tile][permuted n8 fragment][c]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) f[mt][i][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load_stage(s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage kt landed; every warp is done with ut
+    if (kt + kStages - 1 < ktiles) load_stage(kt + kStages - 1);
+    cp_async_commit();
+    const int8_t* a_t = smem + (kt % kStages) * kStage;
+    const float* s_t = reinterpret_cast<const float*>(a_t + kA + P::WT);
+    w4_unpack_tile<KSP, kW4PfThreads>(ut, a_t + kA, tid);
+    __syncthreads();
+    const int k0 = kt * KSP;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int gi = 0; gi < GPS; ++gi) {
+        if (k0 + gi * GROUP >= D2) break;
+        int acc[2][4][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mt][i][r] = 0;
+#pragma unroll
+        for (int q = 0; q < (GROUP + 31) / 32; ++q) {
+          // k16 chunk(s) of this step: one at group 16, else two
+          const int ch = h * HC + (gi * GROUP + 32 * q) / 16;
+          uint32_t a[2][4], b[4][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < (GROUP == 16 ? 2 : 4); ++j) {
+              const int row = wm * 32 + mt * 16 + g + 8 * (j & 1);
+              a[mt][j] = *reinterpret_cast<const uint32_t*>(
+                  a_t + w4_atile_offset<KSP>(row, ch + (j >> 1)) + 4 * tig);
+            }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < (GROUP == 16 ? 1 : 2); ++j)
+              b[i][j] = *reinterpret_cast<const uint32_t*>(
+                  ut + w4_atile_offset<KSP>(wn * 32 + 8 * i + g, ch + j) +
+                  4 * tig);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              if constexpr (GROUP == 16)
+                mma_s8_k16(acc[mt][i], a[mt][0], a[mt][1], b[i][0]);
+              else
+                mma_s8(acc[mt][i], a[mt], b[i][0], b[i][1]);
+            }
+        }
+        // the group's scales of the thread's columns 8*tig + 0..7 of its span
+        const float* sr = s_t + (h * GPS + gi) * kTileN + wn * 32 + 8 * tig;
+        const float4 s0 = *reinterpret_cast<const float4*>(sr);
+        const float4 s1 = *reinterpret_cast<const float4*>(sr + 4);
+        const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              f[mt][i][r] = fmaf(exact_float(acc[mt][i][r]),
+                                 sc[(r & 1) * 4 + i], f[mt][i][r]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // thread (g, tig) holds columns 8*tig + 0..3 (c0/c2 of fragments 0..3)
+  // and 8*tig + 4..7 (c1/c3) of rows g and g + 8, as K3's prefill tile
+  TO* oc = out + (size_t)c * T * N;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = m0 + wm * 32 + mt * 16 + half * 8 + g;
+      if (t >= T) continue;
+      const float sx = xs[t];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = n0 + wn * 32 + 8 * tig + 4 * q;
+        if (n >= N) continue;
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = w4_final(f[mt][i][2 * half + q], sx);
+        store4(oc + (size_t)t * N + n, v);
+      }
+    }
+}
+
+// --- decode tile: 128 weight columns x NT*8 tokens, split-K in f32
+
+constexpr int kW4DcThreads = 128;   // 4 warps of 32 columns
+constexpr int kW4DcStages = 4;
+
+template <int GROUP> __host__ __device__ constexpr int w4_dc_xstride() {
+  return 2 * W4<GROUP>::KSP + 16;   // x row: low | high bytes + 16 of pad
+}
+template <int GROUP, int NT> __host__ __device__ constexpr int w4_dc_stage() {
+  return W4<GROUP>::WT + NT * 8 * w4_dc_xstride<GROUP>() + W4<GROUP>::ST;
+}
+
+// part: f32 partial sums [S, C, T, N] and done: one arrival counter per
+// (c, column tile), zero on entry and put back to zero by the last piece,
+// when K is cut into gridDim.y > 1 pieces of kchunk packed rows; both null
+// for one piece.
+template <int GROUP, int NT, typename TO>
+__global__ void __launch_bounds__(kW4DcThreads) w4a8_decode_kernel(
+    const int8_t* __restrict__ xq, int ldx, const float* __restrict__ xs,
+    const int8_t* __restrict__ w, const float* __restrict__ ws,
+    TO* __restrict__ out, int T, int D2, int N, int kchunk,
+    float* __restrict__ part, int* __restrict__ done) {
+  using P = W4<GROUP>;
+  constexpr int KSP = P::KSP, GPS = P::GPS, HC = P::HC;
+  constexpr int XS = w4_dc_xstride<GROUP>();
+  constexpr int kStage = w4_dc_stage<GROUP, NT>();
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ int last_piece;
+  const int c = blockIdx.z, tile = blockIdx.x, C = gridDim.z;
+  const int n0 = tile * kTileN;
+  const int kb0 = blockIdx.y * kchunk, ke = min(D2, kb0 + kchunk);
+  const int ktiles = (ke - kb0 + KSP - 1) / KSP;
+  const int GH = D2 / GROUP;
+  const int8_t* wc = w + (size_t)c * D2 * N;
+  const float* wsc = ws + (size_t)c * 2 * GH * N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+
+  auto load_stage = [&](int kt) {
+    int8_t* w_t = smem + (kt % kW4DcStages) * kStage;
+    int8_t* x_t = w_t + P::WT;
+    const int k0 = kb0 + kt * KSP;
+    load_wtile_any<kW4DcThreads, KSP>(w_t, wc, k0, ke, n0, N, tid);
+    for (int e = tid; e < NT * 8 * 2 * HC; e += kW4DcThreads) {
+      const int t = e / (2 * HC), ch = e % (2 * HC);
+      const int kc = k0 + (ch % HC) * 16;
+      const bool ok = t < T && kc < ke;
+      cp_async16(smem_u32(x_t + t * XS + ch * 16),
+                 ok ? xq + (size_t)t * ldx + (ch / HC) * D2 + kc : xq,
+                 ok ? 16 : 0);
+    }
+    load_scales<GPS, kW4DcThreads>(
+        reinterpret_cast<float*>(x_t + NT * 8 * XS), wsc, k0 / GROUP,
+        ke / GROUP, GH, n0, N, tid);
+  };
+
+  float f[2][NT][4];  // x16 running sums [m16 tile][n8 token tile][c]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) f[mt][j][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kW4DcStages - 1; ++s) {
+    if (s < ktiles) load_stage(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kW4DcStages - 2>();
+    __syncthreads();
+    if (kt + kW4DcStages - 1 < ktiles) load_stage(kt + kW4DcStages - 1);
+    cp_async_commit();
+    const int8_t* w_t = smem + (kt % kW4DcStages) * kStage;
+    const int8_t* x_t = w_t + P::WT;
+    const float* s_t = reinterpret_cast<const float*>(x_t + NT * 8 * XS);
+    const int k0 = kb0 + kt * KSP;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int gi = 0; gi < GPS; ++gi) {
+        if (k0 + gi * GROUP >= ke) break;
+        int acc[2][NT][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[mt][j][r] = 0;
+        // A: m16 tile mt's row j (j < 8) is weight column 4j + 2*mt of
+        // the warp's span, row 8 + j column 4j + 2*mt + 1
+        if constexpr (GROUP == 16) {
+          const int kb = gi * 16;
+          uint32_t wv[4];
+          load_kwords(w_t, kb, warp, g, tig, wv);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const uint32_t b = *reinterpret_cast<const uint32_t*>(
+                x_t + (8 * j + g) * XS + h * KSP + kb + 4 * tig);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              mma_s8_k16(acc[mt][j], nibbles_x16(wv[2 * mt], h),
+                         nibbles_x16(wv[2 * mt + 1], h), b);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < GROUP / 32; ++q) {
+            const int kb = gi * GROUP + 32 * q;
+            uint32_t w0[4], w1[4], a[2][4];
+            load_kwords(w_t, kb, warp, g, tig, w0);
+            load_kwords(w_t, kb + 16, warp, g, tig, w1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              a[mt][0] = nibbles_x16(w0[2 * mt], h);
+              a[mt][1] = nibbles_x16(w0[2 * mt + 1], h);
+              a[mt][2] = nibbles_x16(w1[2 * mt], h);
+              a[mt][3] = nibbles_x16(w1[2 * mt + 1], h);
+            }
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const int8_t* xr = x_t + (8 * j + g) * XS + h * KSP + kb + 4 * tig;
+              const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+              const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][j], a[mt], b0, b1);
+            }
+          }
+        }
+        // the group's scales of the thread's columns 4g + 0..3 of its span
+        const float4 s4 = *reinterpret_cast<const float4*>(
+            s_t + (h * GPS + gi) * kTileN + 32 * warp + 4 * g);
+        const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              f[mt][j][r] = fmaf(exact_float(acc[mt][j][r]),
+                                 sc[2 * mt + (r >> 1)], f[mt][j][r]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // thread (g, tig) holds, for tokens 8j + 2*tig + p, columns 4g + 0..3:
+  // column 4g + cc in f[cc / 2][j][2 * (cc % 2) + p]
+  const int n = n0 + 32 * warp + 4 * g;
+  TO* oc = out + (size_t)c * T * N;
+  float* pc = part == nullptr ? nullptr
+                              : part + ((size_t)blockIdx.y * C + c) * T * N;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int t = 8 * j + 2 * tig + p;
+      if (t >= T || n >= N) continue;
+      float v[4];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) v[cc] = f[cc >> 1][j][2 * (cc & 1) + p];
+      if (pc == nullptr) {
+        const float sx = xs[t];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) v[cc] = w4_final(v[cc], sx);
+        store4(oc + (size_t)t * N + n, v);
+      } else {
+        store4(pc + (size_t)t * N + n, v);
+      }
+    }
+  if (pc == nullptr) return;
+
+  // the last piece of this column tile to arrive adds the S partials in
+  // piece order (the same bits whichever CTA arrives last), applies the
+  // token scale and puts the counter back to zero for the next launch
+  __threadfence();
+  __syncthreads();
+  int* counter = done + c * gridDim.x + tile;
+  if (tid == 0) last_piece = atomicAdd(counter, 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!last_piece) return;
+  __threadfence();
+  const size_t piece = (size_t)C * T * N;
+  const float* p0 = part + (size_t)c * T * N;
+  for (int e = tid; e < T * (kTileN / 4); e += kW4DcThreads) {
+    const int t = e / (kTileN / 4), nn = n0 + 4 * (e % (kTileN / 4));
+    if (nn >= N) continue;
+    const size_t at = (size_t)t * N + nn;
+    float4 a = __ldcg(reinterpret_cast<const float4*>(p0 + at));
+    for (int s = 1; s < (int)gridDim.y; ++s) {
+      const float4 b = __ldcg(reinterpret_cast<const float4*>(p0 + s * piece + at));
+      a.x = __fadd_rn(a.x, b.x); a.y = __fadd_rn(a.y, b.y);
+      a.z = __fadd_rn(a.z, b.z); a.w = __fadd_rn(a.w, b.w);
+    }
+    const float sx = xs[t];
+    const float v[4] = {w4_final(a.x, sx), w4_final(a.y, sx),
+                        w4_final(a.z, sx), w4_final(a.w, sx)};
+    store4(oc + at, v);
+  }
+  if (tid == 0) *counter = 0;
+}
+
+template <int GROUP, typename TO>
+int launch_w4_prefill(const int8_t* xq, int ldx, const float* xs,
+                      const int8_t* w, const float* ws, void* out, int T,
+                      int D2, int N, int C, cudaStream_t s) {
+  constexpr int smem = w4_pf_smem<GROUP>();
+  const cudaError_t err = allow_smem<w4a8_prefill_kernel<GROUP, TO>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((T + kPfBM - 1) / kPfBM) *
+                          ((N + kTileN - 1) / kTileN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, C);
+  w4a8_prefill_kernel<GROUP, TO><<<grid, kW4PfThreads, smem, s>>>(
+      xq, ldx, xs, w, ws, (TO*)out, T, D2, N);
+  return (int)cudaGetLastError();
+}
+
+template <int GROUP, int NT, typename TO>
+int launch_w4_decode(const int8_t* xq, int ldx, const float* xs,
+                     const int8_t* w, const float* ws, void* out, int T,
+                     int D2, int N, int C, int splits, int kchunk,
+                     float* part, int* done, cudaStream_t s) {
+  constexpr int smem = kW4DcStages * w4_dc_stage<GROUP, NT>();
+  const cudaError_t err = allow_smem<w4a8_decode_kernel<GROUP, NT, TO>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + kTileN - 1) / kTileN, splits, C);
+  w4a8_decode_kernel<GROUP, NT, TO><<<grid, kW4DcThreads, smem, s>>>(
+      xq, ldx, xs, w, ws, (TO*)out, T, D2, N, kchunk, part, done);
+  return (int)cudaGetLastError();
+}
+
+template <int GROUP, typename TO>
+int launch_w4a8(const int8_t* xq, int ldx, const float* xs, const int8_t* w,
+                const float* ws, void* out, int T, int D2, int N, int C,
+                int splits, int kchunk, float* part, int* done,
+                cudaStream_t s) {
+  if (T > kDecodeMaxT) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    return launch_w4_prefill<GROUP, TO>(xq, ldx, xs, w, ws, out, T, D2, N, C,
+                                        s);
+  }
+  // the pieces [i*kchunk, min(D2, (i+1)*kchunk)) of whole stages must
+  // cover the packed rows, none empty
+  if (splits < 1 || kchunk <= 0 || kchunk % W4<GROUP>::KSP ||
+      (long long)(splits - 1) * kchunk >= D2 ||
+      (long long)splits * kchunk < D2 ||
+      (splits > 1) != (part != nullptr) || (splits > 1) != (done != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (T <= 8)
+    return launch_w4_decode<GROUP, 1, TO>(xq, ldx, xs, w, ws, out, T, D2, N,
+                                          C, splits, kchunk, part, done, s);
+  return launch_w4_decode<GROUP, 2, TO>(xq, ldx, xs, w, ws, out, T, D2, N, C,
+                                        splits, kchunk, part, done, s);
 }
 
 template <typename TO>
-int launch_w4a8_for(const int8_t* xq, const float* xs, const int8_t* w,
-                    const float* ws, void* out, int T, int D, int N, int C,
-                    int group, cudaStream_t s) {
+int launch_w4a8_for(const int8_t* xq, int ldx, const float* xs,
+                    const int8_t* w, const float* ws, void* out, int T,
+                    int D2, int N, int C, int group, int splits, int kchunk,
+                    float* part, int* done, cudaStream_t s) {
+  if (D2 % group) return (int)cudaErrorInvalidValue;
+#define PPL_W4(G)                                                           \
+  launch_w4a8<G, TO>(xq, ldx, xs, w, ws, out, T, D2, N, C, splits, kchunk, \
+                     part, done, s)
   switch (group) {
-    case 16: launch_w4a8<16, TO>(xq, xs, w, ws, out, T, D, N, C, s); break;
-    case 32: launch_w4a8<32, TO>(xq, xs, w, ws, out, T, D, N, C, s); break;
-    case 64: launch_w4a8<64, TO>(xq, xs, w, ws, out, T, D, N, C, s); break;
-    case 128: launch_w4a8<128, TO>(xq, xs, w, ws, out, T, D, N, C, s); break;
+    case 16: return PPL_W4(16);
+    case 32: return PPL_W4(32);
+    case 64: return PPL_W4(64);
+    case 128: return PPL_W4(128);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef PPL_W4
 }
 
 }  // namespace
@@ -785,17 +1210,27 @@ int ppl_i8i8_gemm(int out_dtype, const int8_t* xq, int ldx, const float* xs,
                                     splits, kchunk, workspace, s);
 }
 
-// K4: xq/xs from ppl_i8i8_quantize_rows; w packed int4 [C, D/2, N];
-// ws f32 [C, D/group, N]; out [C, T, N]; group in {16, 32, 64, 128}.
-int ppl_w4a8_gemm(int out_dtype, const int8_t* xq, const float* xs,
-                  const int8_t* w, const float* ws, void* out, int T, int D,
-                  int N, int C, int group, void* stream) {
+// K4: xq [T, ldx] (ldx a multiple of 16, at least D, D = 2 * D2) and xs
+// from ppl_i8i8_quantize_rows; w packed int4 [C, D2, N]; ws f32
+// [C, D/group, N]; out [C, T, N]; group in {16, 32, 64, 128} dividing D2.
+// T <= 16 runs the decode tile over `splits` pieces of `kchunk` packed
+// rows each (a multiple of max(group, 64); the last piece ends at D2),
+// and needs, when splits > 1, an f32 workspace `part` of splits*C*T*N
+// partial sums and `done`, C*ceil(N/128) counters that are zero (each
+// launch leaves them zero); both null when 1. T > 16 runs the prefill
+// tile, splits 1.
+int ppl_w4a8_gemm(int out_dtype, const int8_t* xq, int ldx, const float* xs,
+                  const int8_t* w, const float* ws, void* out, int T, int D2,
+                  int N, int C, int group, int splits, int kchunk,
+                  float* part, int* done, void* stream) {
   if (T == 0) return 0;
+  if (ldx % 16 || ldx < 2 * D2 || N % 4) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (out_dtype == 0)
-    return launch_w4a8_for<float>(xq, xs, w, ws, out, T, D, N, C, group, s);
-  return launch_w4a8_for<__nv_bfloat16>(xq, xs, w, ws, out, T, D, N, C,
-                                        group, s);
+    return launch_w4a8_for<float>(xq, ldx, xs, w, ws, out, T, D2, N, C,
+                                  group, splits, kchunk, part, done, s);
+  return launch_w4a8_for<__nv_bfloat16>(xq, ldx, xs, w, ws, out, T, D2, N, C,
+                                        group, splits, kchunk, part, done, s);
 }
 
 }  // extern "C"

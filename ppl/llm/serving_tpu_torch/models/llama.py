@@ -91,13 +91,40 @@ class StepOutput(NamedTuple):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
+                dtype=torch.bfloat16, device="cpu", quantize: str = "none",
+                quantize_lm_head: bool = False) -> Dict[str, Any]:
     """Random weights at the model's widths, drawn from ``generator`` on
     ``device`` (tests and benchmarks; the scales follow the JAX
-    package's ``init_params``)."""
+    package's ``init_params``).
+
+    With ``quantize`` (``online_i8i8`` / ``online_w4a8``) each layer is
+    quantized (:func:`quantize_layer_params`) as soon as it is drawn and
+    its float weights dropped before the next is drawn, and the lm_head
+    too when ``quantize_lm_head``: no more than one float layer is alive
+    at a time. The draws are the same, in the same order, so the result
+    equals ``quantize_model_params(init_params(...), quantize,
+    quantize_lm_head)`` byte for byte. On cuda each layer's quantized
+    tensors are allocated before its float weights are drawn, right after
+    the allocator's cache is emptied, so no temporary shares their memory
+    segments and every temporary's segment can be given back."""
     d, hd = cfg.hidden_dim, cfg.head_dim
     n_q, n_kv = cfg.num_heads, cfg.num_kv_heads
     g = n_q // n_kv
+    quantize = None if quantize == "none" else quantize
+    cuda = torch.device(device).type == "cuda"
+    shapes = {"wqkv": (d, n_kv, g + 2, hd), "wo": (n_q * hd, d),
+              "w_gate_up": (d, 2, cfg.intermediate_dim),
+              "w_down": (cfg.intermediate_dim, d)}
+
+    def empty_quantized(quantizer, names):
+        """Empty tensors shaped and typed as ``quantizer``'s output for
+        the weights ``names`` (worked out on the meta device)."""
+        if cuda:
+            torch.cuda.empty_cache()
+        meta = quantizer({k: torch.empty(shapes[k], dtype=dtype,
+                                         device="meta") for k in names})
+        return {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                for k, v in meta.items()}
 
     def w(shape, scale):
         x = torch.randn(shape, generator=generator, device=device,
@@ -110,6 +137,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     s = d ** -0.5
     params = {"embedding": w((cfg.vocab_size, d), 1.0), "layers": []}
     for _ in range(cfg.num_layers):
+        if quantize is not None:
+            out = empty_quantized(
+                lambda lp: quantize_layer_params(lp, quantize), _MATMULS)
         layer = {
             "attn_norm": ones(),
             "ffn_norm": ones(),
@@ -122,9 +152,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.attn_bias:
             layer["bqkv"] = w((n_kv, g + 2, hd), 0.02)
             layer["bo"] = w((d,), 0.02)
+        if quantize is not None:
+            layer = quantize_layer_params(layer, quantize)
+            for k, v in out.items():
+                layer[k] = v.copy_(layer[k])
         params["layers"].append(layer)
     params["final_norm"] = ones()
-    params["lm_head"] = w((d, cfg.vocab_size), s)
+    shapes["lm_head"] = (d, cfg.vocab_size)
+    if quantize is not None and quantize_lm_head:
+        out = empty_quantized(
+            lambda lp: _quantize_lm_head(lp["lm_head"], quantize),
+            ("lm_head",))
+        q = _quantize_lm_head(w(shapes["lm_head"], s), quantize)
+        params.update({k: v.copy_(q[k]) for k, v in out.items()})
+    else:
+        if cuda:
+            torch.cuda.empty_cache()
+        params["lm_head"] = w(shapes["lm_head"], s)
     return params
 
 
@@ -182,38 +226,49 @@ _QUANTIZERS = {
     "online_i8i8": lambda w: quant_ops.quantize_weight(w, contract_axis=0),
     "online_w4a8": quant_ops.quantize_weight_int4,
 }
+_MATMULS = ("wqkv", "wo", "w_gate_up", "w_down")
+
+
+def quantize_layer_params(lp: Dict[str, Any],
+                          method: str = "online_i8i8") -> Dict[str, Any]:
+    """One layer's matmul weights as (<name>_q, <name>_s): int8 with f32
+    per-output-channel scales (``online_i8i8``), or packed int4 with f32
+    group-64 scales (``online_w4a8``). The fused gate|up goes C-leading:
+    [2, D, I] (int4: packed [2, D/2, I] and scales [2, G, I]). Norms and
+    biases are kept as they are; ``lp`` is not changed."""
+    quantize = _QUANTIZERS[method]
+    nl = {k: v for k, v in lp.items() if k not in _MATMULS}
+    for name in _MATMULS:
+        q, s = quantize(lp[name])
+        if q.ndim == 3:
+            q = q.permute(1, 0, 2)
+            if s.ndim == 3:
+                s = s.permute(1, 0, 2)
+        nl[name + "_q"] = q.contiguous()
+        nl[name + "_s"] = s.contiguous()
+    return nl
+
+
+def _quantize_lm_head(lm_head: torch.Tensor, method: str) -> Dict[str, Any]:
+    q, s = _QUANTIZERS[method](lm_head)
+    return {"lm_head_q": q.contiguous(), "lm_head_s": s.contiguous()}
 
 
 def quantize_model_params(params: Dict[str, Any],
                           method: str = "online_i8i8",
                           quantize_lm_head: bool = False) -> Dict[str, Any]:
-    """Each transformer matmul weight becomes (<name>_q, <name>_s): int8
-    with f32 per-output-channel scales (``online_i8i8``), or packed int4
-    with f32 group-64 scales (``online_w4a8``). The fused gate|up goes
-    C-leading: [2, D, I] (int4: packed [2, D/2, I] and scales
-    [2, G, I]). Embedding, norms and (unless asked) lm_head stay float.
-    The float originals are dropped as their copies are made."""
-    quantize = _QUANTIZERS[method]
-    new_layers = []
-    for lp in params["layers"]:
-        nl = {k: v for k, v in lp.items()
-              if k not in ("wqkv", "wo", "w_gate_up", "w_down")}
-        for name in ("wqkv", "wo", "w_gate_up", "w_down"):
-            q, s = quantize(lp[name])
-            if q.ndim == 3:
-                q = q.permute(1, 0, 2)
-                if s.ndim == 3:
-                    s = s.permute(1, 0, 2)
-            nl[name + "_q"] = q.contiguous()
-            nl[name + "_s"] = s.contiguous()
-        new_layers.append(nl)
+    """Every layer through :func:`quantize_layer_params`, and the lm_head
+    too when ``quantize_lm_head``; the embedding and norms stay float.
+    Returns new params; the caller's float ones stay alive as long as the
+    caller holds them, so building this way holds every float layer
+    beside its quantized copy. To hold one float layer at a time, draw
+    the weights quantized (``init_params(..., quantize=method)``)."""
     out = dict(params)
-    out["layers"] = new_layers
+    out["layers"] = [quantize_layer_params(lp, method)
+                     for lp in params["layers"]]
     if quantize_lm_head:
-        q, s = quantize(params["lm_head"])
-        out["lm_head_q"] = q.contiguous()
-        out["lm_head_s"] = s.contiguous()
         del out["lm_head"]
+        out.update(_quantize_lm_head(params["lm_head"], method))
     return out
 
 

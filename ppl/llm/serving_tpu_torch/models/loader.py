@@ -16,12 +16,16 @@ from . import llama
 
 
 def load_params(cfg: ModelConfig, model_format: str, model_dir: str,
-                seed: int = 0, device="cuda") -> Dict[str, Any]:
+                seed: int = 0, device="cuda", quant_method: str = "none",
+                quantize_lm_head: bool = False) -> Dict[str, Any]:
     """Dispatch on ``model_format``; "random" draws the weights on
-    ``device`` from a ``torch.Generator`` seeded with ``seed``."""
+    ``device`` from a ``torch.Generator`` seeded with ``seed``, each
+    layer quantized with ``quant_method`` as soon as it is drawn (and the
+    lm_head when ``quantize_lm_head``)."""
     if model_format == "random":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return llama.init_params(cfg, gen, dtype=llama.torch_dtype(cfg.dtype),
-                                 device=device)
+                                 device=device, quantize=quant_method,
+                                 quantize_lm_head=quantize_lm_head)
     raise not_ported(f"model_format={model_format!r}")

@@ -7,10 +7,13 @@ per-token quantize pass, then the int8 x int8 or int8 x int4 GEMM with
 the scale epilogue) or raises, never falling back.
 ``i8i8_matmul.launches`` and ``w4a8_matmul.launches`` count launches.
 
-K3 runs one of two tensor-core tiles: at ``T <= DECODE_MAX_T`` tokens the
-decode tile, over pieces of K that :func:`plan_split_k` chooses (their
-int32 partial sums meet in a zeroed workspace, so every run gives the
-same bits), above it the prefill tile.
+K3 and K4 each run one of two tensor-core tiles: at ``T <= DECODE_MAX_T``
+tokens the decode tile, over pieces of K that :func:`plan_split_k`
+(:func:`plan_split_k_w4`: whole groups) chooses, above it the prefill
+tile. K3's pieces add int32 partial sums in a zeroed workspace; K4's
+write f32 partials that the last piece of a column tile adds in piece
+order, its arrival counters kept per device and left at zero by every
+launch. Either way every run gives the same bits.
 
 Same two weight contracts as the JAX package's Pallas kernels: plain
 x [T, D] x w [D, ...out] -> [T, ...out] (w4a8: packed [D/2, ...out],
@@ -33,6 +36,7 @@ DECODE_MAX_T = 16    # kDecodeMaxT in the .cu: the decode tile's largest T
 K_STAGE = 64         # kDcBK: contraction rows per stage, and per piece
 ROW_ALIGN = 128      # kPfBK: the int8 activation rows' stride is a multiple of it
 TILE_N = 128         # kTileN: weight columns per CTA (both tiles)
+W4_STAGE = 64        # kW4Stage: K4's packed rows per stage, at least
 CTAS_PER_SM = 2      # what the split-K planner aims for at decode sizes
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,8 +51,8 @@ def _lib():
         lib.ppl_i8i8_gemm.argtypes = [_I, _P, _I, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _P, _P]
         lib.ppl_i8i8_gemm.restype = _I
-        lib.ppl_w4a8_gemm.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _P]
+        lib.ppl_w4a8_gemm.argtypes = [_I, _P, _I, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _P, _P, _P]
         lib.ppl_w4a8_gemm.restype = _I
         lib._ppl_typed = True
     return lib
@@ -104,6 +108,47 @@ def plan_split_k(t: int, d: int, n: int, c: int, num_sms: int):
     want = -(-CTAS_PER_SM * num_sms // tiles)
     per_piece = max(1, stages // want)
     return -(-stages // per_piece), per_piece * K_STAGE
+
+
+def plan_split_k_w4(t: int, d2: int, n: int, c: int, num_sms: int,
+                    group: int):
+    """K4's pieces of the ``d2`` packed rows: ``(splits, kchunk)`` in
+    packed rows, by :func:`plan_split_k`'s rule over stages of
+    ``max(group, W4_STAGE)`` packed rows (whole groups): above
+    ``DECODE_MAX_T`` tokens one piece; at decode sizes none empty, and
+    ``c * ceil(n / TILE_N) * splits`` CTAs reach ``CTAS_PER_SM *
+    num_sms`` unless the rows have fewer stages than that needs."""
+    ksp = max(group, W4_STAGE)
+    stages = -(-d2 // ksp)
+    if t > DECODE_MAX_T:
+        return 1, stages * ksp
+    tiles = c * -(-n // TILE_N)
+    want = -(-CTAS_PER_SM * num_sms // tiles)
+    per_piece = max(1, stages // want)
+    return -(-stages // per_piece), per_piece * ksp
+
+
+_COUNTERS = {}      # device -> K4's int32 arrival counters, all zero
+_MIN_COUNTERS = 4096
+
+
+def _w4_counters(device, needed: int) -> torch.Tensor:
+    """K4's split-K arrival counters on ``device``: zero between launches
+    (the last piece of each column tile puts its counter back), so one
+    buffer serves every call, eager or replayed in a CUDA graph. It is
+    allocated outside any graph capture: growing it inside one would
+    leave it in the graph's memory pool."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < needed:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "w4a8_matmul: split-K counters must grow to "
+                f"{needed} during a CUDA graph capture; run the same "
+                "shapes eagerly first")
+        buf = torch.zeros(max(_MIN_COUNTERS, needed), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -194,11 +239,23 @@ def w4a8_matmul(x: torch.Tensor, w_p: torch.Tensor, w_scale: torch.Tensor,
     if t:
         lib = _lib()
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        splits, kchunk = plan_split_k_w4(t, d2, n, c,
+                                         _build.sm_count(x.device), group)
+        # D % 32 == 0 (D/2 is a multiple of the group), so rows of D
+        # bytes keep every 16-byte chunk of both column ranges whole
         xq, xs = _quantize_rows("w4a8_matmul", lib, x, stream)
-        err = lib.ppl_w4a8_gemm(_DTYPE_CODE[out_dtype], xq.data_ptr(),
+        part = done = None
+        if splits > 1:
+            part = torch.empty((splits, c, t, n), dtype=torch.float32,
+                               device=x.device)
+            done = _w4_counters(x.device, c * -(-n // TILE_N))
+        err = lib.ppl_w4a8_gemm(_DTYPE_CODE[out_dtype], xq.data_ptr(), d,
                                 xs.data_ptr(), w_p.data_ptr(),
-                                w_scale.data_ptr(), out.data_ptr(), t, d, n,
-                                c, group, stream)
+                                w_scale.data_ptr(), out.data_ptr(), t, d2, n,
+                                c, group, splits, kchunk,
+                                0 if part is None else part.data_ptr(),
+                                0 if done is None else done.data_ptr(),
+                                stream)
         if err:
             raise RuntimeError(f"w4a8_matmul: launch failed (cudaError "
                                f"{err})")

@@ -1,11 +1,12 @@
 """Resource wiring: weights -> device, KV pool sizing, engine creation.
 
 Same order as the JAX package's ``resources.py`` (and the reference's
-``resource_manager.cc:329-362``): make the weights, measure free device
-memory, size the KV pool from what is left. An auto-sized pool on cuda
-is sized after the CUDA graphs: a provisional engine with one request's
-pages validates the bucket grid first, and what its graphs and their
-warm-up took is held back from the pool.
+``resource_manager.cc:329-362``): make the weights (each layer quantized
+as it is drawn), measure free device memory, size the KV pool from what
+is left. An auto-sized pool on cuda is sized after the CUDA graphs: a
+provisional engine with one request's pages validates the bucket grid
+first, and what its graphs and their warm-up took is held back from the
+pool.
 """
 
 from __future__ import annotations
@@ -65,12 +66,21 @@ def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
     if validate_grid is None:
         validate_grid = auto and cuda
 
+    # each layer quantized as it is drawn: one float layer alive at a time
+    free_before = build_peak = None
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        free_before, _ = torch.cuda.mem_get_info(device)
+        allocated0 = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
     params = loader.load_params(model_cfg, resource_cfg.model_format,
                                 resource_cfg.model_dir, seed=rng_seed,
-                                device=device)
-    if resource_cfg.quant_method != "none":
-        params = llama.quantize_model_params(
-            params, resource_cfg.quant_method, resource_cfg.quantize_lm_head)
+                                device=device,
+                                quant_method=resource_cfg.quant_method,
+                                quantize_lm_head=resource_cfg.quantize_lm_head)
+    if cuda:
+        build_peak = torch.cuda.max_memory_allocated(device) - allocated0
 
     def build(kv_tokens: int, graph_budget_bytes: int = 0) -> LLMEngine:
         page = model_cfg.page_size
@@ -126,6 +136,11 @@ def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
                 "%d of them held back for the CUDA graphs and their "
                 "warm-up)", kv_cache_max_tokens, free, reserved)
     engine = build(kv_cache_max_tokens, reserved)
+    # the weight build's own peak allocation and the free device memory
+    # around it (cuda only; None on the CPU)
+    engine.weight_build_peak_bytes = build_peak
+    engine.free_before_weights_bytes = free_before
+    engine.free_after_weights_bytes = free if cuda else None
     if buckets is not None:
         engine.batch_buckets = buckets
     if validate_grid:

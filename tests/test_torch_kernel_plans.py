@@ -1,10 +1,14 @@
 """Host-side pieces of the port's kernels that run without a card: K3's
-split-K planner, K1's context-split plan, the build's cache key (sources
+and K4's split-K planners, K4's x16 nibble unpack and rescale identity
+(in numpy), K1's context-split plan, the build's cache key (sources
 and shared headers) and the SASS instruction counter that
 ``chip_smoke.py`` reads."""
 
+import numpy as np
 import pytest
+import torch
 
+from ppl.llm.serving_tpu_torch.ops import quant as quant_ops
 from ppl.llm.serving_tpu_torch.ops.kernels import _build
 from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention as pk
 from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul as qk
@@ -46,6 +50,95 @@ def test_split_k_at_13b_widths():
     pieces enough for two CTAs on each of an H100's 132 SMs."""
     assert qk.plan_split_k(8, 13696, 5120, 1, 132) == (8, 1920)
     assert qk.plan_split_k(8, 5120, 13696, 2, 132) == (2, 2560)
+
+
+# (D, N, C) of K4's LLaMA-2-7B weights: wqkv, wo, gate|up, down, lm_head;
+# a small odd shape and one thinner than a column tile
+W4_SHAPES = [(4096, 12288, 1), (4096, 4096, 1), (4096, 11008, 2),
+             (11008, 4096, 1), (4096, 32000, 1), (704, 196, 1), (256, 64, 2)]
+
+
+@pytest.mark.parametrize("d,n,c,group", [
+    (d, n, c, group) for d, n, c in W4_SHAPES for group in (16, 32, 64, 128)
+    if (d // 2) % group == 0])
+@pytest.mark.parametrize("t", [1, 8, 16])
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_split_k_w4_pieces_are_whole_groups(d, n, c, group, t, num_sms):
+    d2 = d // 2
+    splits, kchunk = qk.plan_split_k_w4(t, d2, n, c, num_sms, group)
+    ksp = max(group, qk.W4_STAGE)
+    assert splits >= 1 and kchunk > 0 and kchunk % ksp == 0
+    assert kchunk % group == 0                             # whole groups
+    pieces = [(i * kchunk, min(d2, (i + 1) * kchunk)) for i in range(splits)]
+    assert pieces[0][0] == 0 and pieces[-1][1] == d2
+    assert all(lo < hi for lo, hi in pieces)               # none empty
+    assert all(hi % group == 0 for _, hi in pieces)
+    assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+    tiles = c * -(-n // qk.TILE_N)
+    stages = -(-d2 // ksp)
+    assert tiles * splits >= min(qk.CTAS_PER_SM * num_sms, tiles * stages)
+
+
+@pytest.mark.parametrize("t", [17, 100, 1024, 4096])
+def test_split_k_w4_prefill_sizes_run_whole(t):
+    assert qk.plan_split_k_w4(t, 2048, 11008, 2, 132, 64) == (1, 2048)
+    assert qk.plan_split_k_w4(t, 352, 196, 1, 132, 32) == (1, 384)
+
+
+def test_split_k_w4_at_7b_widths():
+    """The 7B pieces at 132 SMs (group 64, stages of 64 packed rows): wo
+    and down (32 column tiles each) are cut most."""
+    plans = [qk.plan_split_k_w4(8, d // 2, n, c, 132, 64)
+             for d, n, c in W4_SHAPES[:5]]
+    assert plans == [(4, 640), (11, 192), (2, 1024), (10, 576), (2, 1024)]
+
+
+def _sign_nibble(v):
+    return v - ((v & 8) << 1)
+
+
+def test_w4_nibbles_times_16_are_exact():
+    """K4's unpack: for every packed byte, ``(b << 4) & 0xF0`` and ``b &
+    0xF0`` read as int8 are exactly 16x the low and the high nibble's
+    signed value, the plain version's ``unpack_int4`` pairing."""
+    b = np.arange(256, dtype=np.int32)
+    word = (b * 0x01010101).astype(np.uint32)                # four lanes
+    lo16 = (word << 4) & 0xF0F0F0F0
+    hi16 = word & 0xF0F0F0F0
+    for lane in range(4):
+        lo = ((lo16 >> (8 * lane)) & 0xFF).astype(np.uint8).view(np.int8)
+        hi = ((hi16 >> (8 * lane)) & 0xFF).astype(np.uint8).view(np.int8)
+        np.testing.assert_array_equal(lo, 16 * _sign_nibble(b & 0xF))
+        np.testing.assert_array_equal(hi, 16 * _sign_nibble(b >> 4))
+    packed = torch.from_numpy(b.astype(np.uint8).view(np.int8).copy())
+    un = quant_ops.unpack_int4(packed[:, None])[:, 0].numpy().astype(np.int32)
+    np.testing.assert_array_equal(16 * un[:256], lo.astype(np.int32))
+    np.testing.assert_array_equal(16 * un[256:], hi.astype(np.int32))
+
+
+def test_w4_rescale_by_16_is_exact():
+    """K4 sums 16·p per group (|16 p| < 2^21, so its f32 conversion is
+    exact) and keeps a running sum 16x the true one: the scaled group sum
+    and the running sum are 16x the plain ones bit for bit (as they are
+    through the kernel's fused multiply-add: scaling by 16 commutes with
+    one rounding as with two), and the end's multiply by 1/16 gives the
+    plain value back."""
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    p = rng.integers(-128 * 7 * 127, 128 * 7 * 127 + 1, 200_000)
+    p = np.concatenate([p, [0, 1, -1, 128 * 8 * 127, -128 * 8 * 127]])
+    p16 = (16 * p).astype(np.int32)
+    assert int(np.abs(p16).max()) < 2 ** 21
+    np.testing.assert_array_equal(p16.astype(f32).astype(np.int64), 16 * p)
+    s = (rng.random(p.size) * 1e-2).astype(f32)
+    acc = (rng.standard_normal(p.size) * 1e3).astype(f32)
+    part = p.astype(f32) * s
+    part16 = p16.astype(f32) * s
+    np.testing.assert_array_equal(part16, f32(16) * part)
+    np.testing.assert_array_equal(f32(16) * acc + part16,
+                                  f32(16) * (acc + part))
+    np.testing.assert_array_equal((f32(16) * (acc + part)) * f32(0.0625),
+                                  acc + part)
 
 
 # (B, KVH) of K1's served grids: TinyLlama (4 kv heads) at B=8 and 64,

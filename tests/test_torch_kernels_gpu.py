@@ -10,9 +10,10 @@ sides, bf16 output rounding); with int8 KV the same (the kernels
 dequantize in f32, exactly as the plain version does before its bf16
 rounding); i8i8 exact in f32 (same quantized operands, exact int32 sums,
 same epilogue order) and within one bf16 rounding in bf16; K1's block-tail
-phase as K1; w4a8 within
+phase as K1; w4a8 (both tensor-core tiles, groups 16-128) within
 1e-5 of max|ref| in f32 (the groups' f32 partials are added in another
-order) and, in bf16, within 2^-8 |ref| + 1e-5 max|ref| per element.
+order) and, in bf16, within 2^-8 |ref| + 1e-5 max|ref| per element, and
+with split-K bit-equal to itself across two runs and a graph replay.
 K1/K2 with ALiBi: f32 atol 2e-4 (the JAX package's ALiBi tolerance; the
 scores carry slope * k_pos, up to ~270 at 13B widths, whose f32 ulp is
 ~3e-5), bf16 as without. K5 (the page read) exact. K1's tensor-core
@@ -310,30 +311,102 @@ def test_tail_decode_kernel_checks_its_arguments(cuda):
                                 dtype=torch.bfloat16), **kw)
 
 
-@pytest.mark.parametrize("group", [32, 64])
-@pytest.mark.parametrize("t", [1, 8, 100])
-@pytest.mark.parametrize("fused", [False, True])
-def test_w4a8_kernel_matches_plain(cuda, group, t, fused):
-    d, n = 512, 192
-    g = torch.Generator(device=cuda).manual_seed(9)
+def _w4_operands(dev, d, n, fused, seed, group=64):
+    g = torch.Generator(device=dev).manual_seed(seed)
     w = torch.randn(((d, 2, n) if fused else (d, n)), generator=g,
-                    device=cuda) * 0.05
+                    device=dev) * d ** -0.5
     wp, ws = quant_ops.quantize_weight_int4(w, group=group)
     assert ws.shape[0] == d // group
     if fused:
         wp = wp.permute(1, 0, 2).contiguous()
         ws = ws.permute(1, 0, 2).contiguous()
+    return wp, ws, g
+
+
+def _w4_check(out, ref, bf16):
+    """f32: 1e-5 of max|ref|; bf16: 2^-8 |ref| + 1e-5 max|ref| each."""
+    scale = float(ref.abs().max())
+    lim = 1e-5 * scale + (2.0 ** -8 * ref.abs() if bf16 else 0.0)
+    diff = (out.float() - ref).abs()
+    assert bool((diff <= lim).all()), float(diff.max())
+
+
+# K4 at T on either side of the decode tile's 8 and 16 rows and at
+# prefill sizes, groups 16-128, at 512 x 192 and at the edges the tiles
+# mask: N = 196 (not a multiple of 16: 4-byte weight copies, a partial
+# column tile) with D/2 = 352 (not a multiple of the 64-row stage) at
+# groups 16 and 32, D/2 = 384 at 64 and 128
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 8, 16, 17, 100, 1024])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("shape", ["512x192", "odd"])
+def test_w4a8_kernel_matches_plain(cuda, group, t, fused, shape):
+    d, n = (512, 192) if shape == "512x192" else (
+        (704, 196) if group <= 32 else (768, 196))
+    wp, ws, g = _w4_operands(cuda, d, n, fused, 9, group)
     x = torch.randn((t, d), generator=g, device=cuda)
+    before = qk.w4a8_matmul.launches
     out = qk.w4a8_matmul(x, wp, ws)
     torch.cuda.synchronize()
-    ref = quant_ops.w4a8_matmul(x, wp, ws)
-    scale = float(ref.abs().max())
-    assert float((out - ref).abs().max()) <= 1e-5 * scale
+    assert qk.w4a8_matmul.launches == before + 1
+    _w4_check(out, quant_ops.w4a8_matmul(x, wp, ws), bf16=False)
     xb = x.to(torch.bfloat16)
     out_bf = qk.w4a8_matmul(xb, wp, ws, out_dtype=torch.bfloat16)
-    ref_bf = quant_ops.w4a8_matmul(xb, wp, ws)
-    lim = 2.0 ** -8 * ref_bf.abs() + 1e-5 * float(ref_bf.abs().max())
-    assert bool(((out_bf.float() - ref_bf).abs() <= lim).all())
+    _w4_check(out_bf, quant_ops.w4a8_matmul(xb, wp, ws), bf16=True)
+
+
+# LLaMA-2-7B's K4 weights that the planner cuts most: wo, down (32
+# column tiles each), and gate|up (fused)
+K4_7B = [("wo", 4096, 4096, False), ("down", 11008, 4096, False),
+         ("gate|up", 4096, 11008, True)]
+
+
+@pytest.mark.parametrize("name,d,n,fused", K4_7B)
+@pytest.mark.parametrize("t", [1, 8, 16])
+def test_w4a8_kernel_split_k_is_repeatable_and_graph_safe(cuda, name, d, n,
+                                                          fused, t):
+    """The decode tile's pieces write f32 partials that the last piece
+    of a column tile adds in piece order: within the tolerance, the same
+    bits on two runs and in a CUDA graph replay, and the arrival counters
+    back at zero after each."""
+    wp, ws, g = _w4_operands(cuda, d, n, fused, 41)
+    splits, _ = qk.plan_split_k_w4(t, d // 2, n, 2 if fused else 1,
+                                   torch.cuda.get_device_properties(
+                                       cuda).multi_processor_count, 64)
+    assert splits > 1
+    x = torch.randn((t, d), generator=g, device=cuda, dtype=torch.bfloat16)
+
+    def run(out_dtype=torch.bfloat16):
+        return qk.w4a8_matmul(x, wp, ws, out_dtype=out_dtype)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    ref = quant_ops.w4a8_matmul(x, wp, ws)
+    _w4_check(first, ref, bf16=True)
+    _w4_check(run(torch.float32), ref, bf16=False)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), replayed.view(torch.int16))
+    assert int(qk._COUNTERS[x.device].abs().sum()) == 0
+
+
+def test_w4a8_kernel_checks_its_arguments(cuda):
+    """Groups outside 16-128 or not dividing D/2, and N % 4 != 0, are
+    refused before any launch."""
+    x = torch.zeros((8, 192), device=cuda)
+    wp = torch.zeros((96, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="group"):
+        qk.w4a8_matmul(x, wp, torch.zeros((2, 64), device=cuda))   # 96
+    with pytest.raises(ValueError, match="group"):
+        qk.w4a8_matmul(x, wp, torch.zeros((24, 64), device=cuda))  # 8
+    with pytest.raises(ValueError, match="multiple of 4"):
+        qk.w4a8_matmul(x, torch.zeros((96, 62), dtype=torch.int8,
+                                      device=cuda),
+                       torch.zeros((6, 62), device=cuda))
 
 
 ALIBI_TOLS = {torch.float32: dict(atol=2e-4, rtol=2e-5),
