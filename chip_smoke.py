@@ -19,7 +19,13 @@ K3 on both); and Baichuan-13B again with the auto-sized KV pool, its
 bucket grid validated before serving. Two more are served over gRPC by
 the server tool's wiring: LLaMA-2-7B i8i8 over int8 KV with the prefix
 cache (K2's prefix-hit rows), and TinyLlama i8i8 with chunked prefill.
-The KV-write microbench drives K5 through its own entry point.
+A checkpoint path writes TinyLlama-1.1B widths as an HF checkpoint
+(safetensors shards, their index, config.json) with a sentencepiece
+tokenizer.model, both drawn here, loads it with online_i8i8 over int8 KV,
+serves it and scores it with eval_ppl (K2, K3 at the NLL row's shape);
+the accuracy harness (eval_accuracy_delta) trains its probe and scores
+every quant config on the card. The KV-write microbench drives K5 through
+its own entry point.
 
 1. the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel),
@@ -35,6 +41,8 @@ The KV-write microbench drives K5 through its own entry point.
    block-tail mode; K1/K2 with ALiBi (SDPA with the bias as its mask);
    K5 exact; K1's rows print the context splits S of their grid, K3's
    and K4's split-K rows their pieces S, each repeatable bit for bit;
+   K2 also at the NLL forward's row (one row of 1,024 tokens at start 0,
+   bf16 and int8 KV; yardstick SDPA with is_causal);
 4. step cross-checks: 2-layer models at full width, same weights on cuda
    (kernels) and cpu (plain versions), one mixed decode+prefill step in
    float32: logits within tolerance, greedy tokens equal, written cache
@@ -43,7 +51,9 @@ The KV-write microbench drives K5 through its own entry point.
    step wrote on the same device; then 4-step decode blocks at 7B (w4a8) and 13B
    (ALiBi, i8i8) width, block tail off and on, on cpu and on cuda, where
    the cuda block runs once eagerly and once as a captured CUDA graph
-   from the same cache state, which must agree bit for bit;
+   from the same cache state, which must agree bit for bit; and
+   make_nll_fn at 2 layers, 7B widths, f32, i8i8 + int8 KV, cuda against
+   cpu (masks equal, NLL within the step check's rule);
 5. end to end, once per path: create_engine + LLMGenerator +
    LocalConnection serving 8 greedy requests (100-400 prompt tokens, 32
    new tokens each) at full depth, after warm-up passes of the same shape
@@ -69,7 +79,13 @@ The KV-write microbench drives K5 through its own entry point.
    client_qps_measure's prefill and decode latency and tokens out/s),
    and TinyLlama i8i8 with 512-token chunked prefill (a 3,000-token
    prompt beside 7 decoding requests; gates: lengths, mixed decode +
-   chunk steps, K2 at start > 0);
+   chunk steps, K2 at start > 0); then the checkpoint path
+   (:func:`hf_checkpoint_path`: the loaded parameters byte-equal to a
+   random engine's of the same seed, its greedy tokens equal too, K1-K3
+   launched and K4 not; eval_ppl at --seq-len 1024 with K2 launched 22
+   times a chunk) and the accuracy harness (:func:`accuracy_harness`:
+   its verdicts printed as measured; every config's mean NLL on the card
+   within the stated tolerance of the cpu's on the same weights);
 6. the KV-write microbench at the 7B geometry: forms a-h timed, b-d and
    f-h held to (a)'s cache bytes, K5's launches counted over the run;
 7. the ``kernels`` JSON line, then the device JSON line last.
@@ -606,7 +622,11 @@ def tail_cases(torch, timer, pk, attn_ops, kv_cache, F, widths, quantized,
 
 
 def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
-                  quantized, which, label, alibi=False):
+                  quantized, which, label, alibi=False, nll=False):
+    """K2 at the serving shapes (the first ``which`` of them), or with
+    ``nll`` at the NLL forward's one: one row of 1,024 tokens at start 0
+    (make_nll_fn's prefill row, eval_ppl's default --seq-len), whose
+    yardstick is SDPA with ``is_causal``."""
     hq, kvh, hd, L = geometry(widths)
     spec = kv_cache.CacheSpec(num_layers=L, num_pages=200 if not quantized
                               else 64, page_size=PS, num_kv_heads=kvh,
@@ -630,6 +650,9 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
               np.array([1], np.int32)),
              ("start=8 pages served", 1, 192, np.array([8 * PS], np.int32),
               np.array([192], np.int32))][:which]
+    if nll:
+        specs = [("nll row start=0", 1, 1024, np.zeros(1, np.int32),
+                  np.array([1024], np.int32))]
     cases = []
     for plabel, bp, qp, start, new_len in specs:
         width = -(-int((start + qp).max()) // PS)   # pages the rows span
@@ -700,6 +723,10 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
                           torch.arange(kv_len, device=dev), torch.bfloat16)
 
         def lib():
+            if nll:
+                return F.scaled_dot_product_attention(q4, k_all, v_all,
+                                                      is_causal=True,
+                                                      enable_gqa=True)
             return F.scaled_dot_product_attention(q4, k_all, v_all,
                                                   attn_mask=mask,
                                                   enable_gqa=True)
@@ -1472,7 +1499,7 @@ def end_to_end(torch, port, name_limit, label, widths, resource, launched,
         max_input_tokens_per_request=4096,
         max_output_tokens_per_request=256,
         max_total_tokens_per_request=8192)
-    rcfg = cfgs.ResourceConfig(**resource)
+    rcfg = cfgs.ResourceConfig(model_format="random", **resource)
     auto = not rcfg.kv_cache_max_tokens
     gc.collect()                 # the previous path's engine and graphs
     torch.cuda.empty_cache()
@@ -2121,6 +2148,539 @@ def data_parallel_path(torch, port, name_limit, tmp, n_rep):
     return dict(path=label, replicas=n_rep)
 
 
+# ------------------------------------------ a checkpoint, served and scored
+
+# the HF checkpoint path (phase 5): TinyLlama-1.1B's published widths at
+# full depth, i8i8 weights over int8 group-8 KV, the weights written as an
+# HF checkpoint and a sentencepiece tokenizer.model, both drawn here
+HF_LABEL = "TinyLlama hf i8i8 int8-KV"
+# the repository's texts the tokenizer's pieces are drawn from
+SP_TEXTS = ("README.md", "SURVEY.md", "COMPONENTS.md", "PAPER.md",
+            "PAPERS.md", "SNIPPETS.md", "docs/performance.md",
+            "docs/llama_guide.md")
+SP_SPACE = "▁"
+# sentencepiece piece types (sentencepiece_model.proto)
+SP_NORMAL, SP_UNKNOWN, SP_CONTROL, SP_BYTE = 1, 2, 3, 6
+
+
+def hf_state_dict(params, widths):
+    """The loader's mapping inverted: the port's float parameters (fused
+    layouts) -> HF llama tensors by name, as HF publishes them (untied
+    lm_head, q/k/v/o projections, [out, in] matrices)."""
+    d, n_q, n_kv = (widths["hidden_dim"], widths["num_heads"],
+                    widths["num_kv_heads"])
+    hd, g = d // n_q, n_q // n_kv
+    sd = {"model.embed_tokens.weight": params["embedding"]}
+    for i, lp in enumerate(params["layers"]):
+        pre = f"model.layers.{i}"
+        wqkv = lp["wqkv"]                       # [D, KVH, G+2, hd]
+        sd.update({
+            f"{pre}.self_attn.q_proj.weight":
+                wqkv[:, :, :g].reshape(d, n_q * hd).T,
+            f"{pre}.self_attn.k_proj.weight":
+                wqkv[:, :, g].reshape(d, n_kv * hd).T,
+            f"{pre}.self_attn.v_proj.weight":
+                wqkv[:, :, g + 1].reshape(d, n_kv * hd).T,
+            f"{pre}.self_attn.o_proj.weight": lp["wo"].T,
+            f"{pre}.mlp.gate_proj.weight": lp["w_gate_up"][:, 0].T,
+            f"{pre}.mlp.up_proj.weight": lp["w_gate_up"][:, 1].T,
+            f"{pre}.mlp.down_proj.weight": lp["w_down"].T,
+            f"{pre}.input_layernorm.weight": lp["attn_norm"],
+            f"{pre}.post_attention_layernorm.weight": lp["ffn_norm"],
+        })
+        if "bqkv" in lp:
+            b = lp["bqkv"]                      # [KVH, G+2, hd]
+            sd.update({f"{pre}.self_attn.q_proj.bias": b[:, :g].reshape(-1),
+                       f"{pre}.self_attn.k_proj.bias": b[:, g].reshape(-1),
+                       f"{pre}.self_attn.v_proj.bias":
+                           b[:, g + 1].reshape(-1),
+                       f"{pre}.self_attn.o_proj.bias": lp["bo"]})
+    sd["model.norm.weight"] = params["final_norm"]
+    sd["lm_head.weight"] = params["lm_head"].T
+    return sd
+
+
+def write_safetensors(torch, tensors, path):
+    """``tensors`` (name -> tensor, any device) as one safetensors file:
+    an 8-byte little-endian header length, the JSON header padded to 8
+    bytes, then each tensor's bytes, written one tensor at a time."""
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            t = t.detach().contiguous().cpu()
+            f.write(t.view(torch.uint8).numpy().tobytes())
+    return offset
+
+
+def write_hf_checkpoint(torch, params, widths, out_dir, n_shards=2):
+    """An HF llama checkpoint directory from the port's float parameters:
+    ``config.json``, ``n_shards`` safetensors shards split by bytes in
+    name order, and ``model.safetensors.index.json``."""
+    import os
+    sd = hf_state_dict(params, widths)
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    shards, acc = [[] for _ in range(n_shards)], 0
+    for name, t in sd.items():
+        shards[min(n_shards - 1, acc * n_shards // total)].append(name)
+        acc += t.numel() * t.element_size()
+    weight_map = {}
+    for i, names in enumerate(shards):
+        fn = f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors"
+        write_safetensors(torch, {n: sd[n] for n in names},
+                          os.path.join(out_dir, fn))
+        weight_map.update({n: fn for n in names})
+    with open(os.path.join(out_dir, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=1)
+    doc = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+           "hidden_size": widths["hidden_dim"],
+           "intermediate_size": widths["intermediate_dim"],
+           "num_hidden_layers": widths["num_layers"],
+           "num_attention_heads": widths["num_heads"],
+           "num_key_value_heads": widths["num_kv_heads"],
+           "vocab_size": widths["vocab_size"],
+           "rms_norm_eps": widths.get("norm_eps", 1e-5),
+           "rope_theta": 10000.0, "max_position_embeddings": 2048,
+           "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+           "bos_token_id": 1, "eos_token_id": 2}
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(doc, f, indent=1)
+    return total
+
+
+def _pb_varint(v):
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _pb_field(num, wire, payload):
+    if wire == 2:
+        payload = _pb_varint(len(payload)) + payload
+    return _pb_varint((num << 3) | wire) + payload
+
+
+def sp_model_bytes(pieces):
+    """A sentencepiece ModelProto: the pieces (piece, score, type), a
+    TrainerSpec (unigram, byte fallback, unk/bos/eos 0/1/2, no pad) and
+    an identity NormalizerSpec with the dummy prefix and whitespace
+    escaping, in protobuf's wire format."""
+    import struct
+    out = b"".join(_pb_field(1, 2, _pb_field(1, 2, p.encode())
+                             + _pb_field(2, 5, struct.pack("<f", s))
+                             + _pb_field(3, 0, _pb_varint(t)))
+                   for p, s, t in pieces)
+    trainer = (_pb_field(3, 0, _pb_varint(1))       # model_type UNIGRAM
+               + _pb_field(35, 0, _pb_varint(1))    # byte_fallback
+               + _pb_field(40, 0, _pb_varint(0)) + _pb_field(41, 0,
+                                                            _pb_varint(1))
+               + _pb_field(42, 0, _pb_varint(2))
+               + _pb_field(43, 0, _pb_varint(-1)))
+    normalizer = (_pb_field(1, 2, b"identity")
+                  + _pb_field(3, 0, _pb_varint(1))
+                  + _pb_field(4, 0, _pb_varint(0))
+                  + _pb_field(5, 0, _pb_varint(1)))
+    return out + _pb_field(2, 2, trainer) + _pb_field(3, 2, normalizer)
+
+
+def sp_pieces(root, vocab_size, texts=SP_TEXTS):
+    """A llama-style piece table of ``vocab_size`` pieces: <unk>, <s>,
+    </s>, the 256 <0xNN> byte pieces, then NORMAL pieces drawn from the
+    repository's ``texts`` under ``root``: each word (most frequent
+    first), lower-cased and capitalized, with and without the space
+    marker, then their prefixes (with
+    and without it) and suffixes, and last every printable ASCII
+    character; the NORMAL pieces score
+    -log(rank + 2), distinct and falling with rank."""
+    import collections
+    import math
+    import os
+    words = collections.Counter()
+    for rel in texts:
+        with open(os.path.join(root, rel), encoding="utf-8") as f:
+            words.update(re.findall(r"[A-Za-z0-9_]+", f.read()))
+    ranked = sorted(words, key=lambda w: (-words[w], w))
+    singles = [c for c in (chr(i) for i in range(33, 127))]
+    singles += [SP_SPACE + c for c in singles] + [SP_SPACE]
+    want = vocab_size - 3 - 256 - len(singles)
+    seen, normal = set(singles), []
+    for cands in ([SP_SPACE + w, w, SP_SPACE + w.lower(), w.lower(),
+                   SP_SPACE + w.capitalize(), w.capitalize()]
+                  for w in ranked):
+        for c in cands:
+            if len(c) > 1 and c not in seen and len(normal) < want:
+                seen.add(c)
+                normal.append(c)
+    for w in ranked:
+        for k in range(2, len(w)):
+            for c in (w[:k], SP_SPACE + w[:k], w[-k:]):
+                if c not in seen and len(normal) < want:
+                    seen.add(c)
+                    normal.append(c)
+    check(len(normal) == want, f"tokenizer: {len(normal)} pieces drawn "
+          f"from the texts, {want} wanted")
+    pieces = [("<unk>", 0.0, SP_UNKNOWN), ("<s>", 0.0, SP_CONTROL),
+              ("</s>", 0.0, SP_CONTROL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, SP_BYTE) for b in range(256)]
+    pieces += [(p, -math.log(r + 2), SP_NORMAL)
+               for r, p in enumerate(normal + singles)]
+    return pieces
+
+
+def same_bytes(torch, a, b):
+    """Two parameter sets equal byte for byte: the same keys, and every
+    tensor of the same dtype, shape and bytes."""
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(same_bytes(torch, a[k], b[k]) for k in a))
+    if isinstance(a, list):
+        return (isinstance(b, list) and len(a) == len(b)
+                and all(same_bytes(torch, x, y) for x, y in zip(a, b)))
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(bits[a.element_size()]),
+        b.contiguous().view(bits[b.element_size()])))
+
+
+def serve_prompts(port, engine, model_cfg, gen_cfg, kv_max, tokenizer,
+                  prompts, gen_len, id0):
+    """Serve ``prompts`` (text) as greedy requests of ``gen_len`` tokens
+    through LLMGenerator; returns (seconds, {id: tokens})."""
+    conn = port["LocalConnection"]()
+    gen = port["LLMGenerator"](model_cfg, gen_cfg, engine, tokenizer, conn,
+                               kv_max)
+    try:
+        reqs = [port["Request"](id=id0 + i, prompt=p,
+                                generation_length=gen_len, top_k=1,
+                                early_stopping=False)
+                for i, p in enumerate(prompts)]
+        conn.set_wanted(len(reqs))
+        t = time.perf_counter()
+        for r in reqs:
+            gen.process(r)
+        check(conn.wait(timeout=600), "hf path: generation timed out")
+        elapsed = time.perf_counter() - t
+        for r in reqs:
+            toks = conn.tokens.get(r.id, [])
+            check(r.id not in conn.failures, f"hf path: request {r.id} "
+                  f"failed: {conn.failures.get(r.id)}")
+            check(len(toks) == gen_len, f"hf path: request {r.id} gave "
+                  f"{len(toks)} tokens")
+        return elapsed, {r.id - id0: list(conn.tokens[r.id]) for r in reqs}
+    finally:
+        gen.shutdown()
+
+
+def hf_checkpoint_path(torch, port, name_limit, tmp):
+    """A user's checkpoint, served and scored on the card. TinyLlama-1.1B
+    widths at full depth: the float weights drawn from SEED on the card
+    (``init_params``, the draws a random engine of that seed makes) and
+    written as an HF checkpoint (two safetensors shards and their index)
+    beside a 32,000-piece sentencepiece ``tokenizer.model``; then
+
+    1. an engine built from the checkpoint through the CLI's wiring
+       (``--model-format hf``, online_i8i8, ``--cache-quant-bit 8``), its
+       quantized parameters byte-equal to a ``random`` engine's of the
+       same seed; the load's wall time and its build peak printed;
+    2. 8 prompts of the repository's text, encoded by the sentencepiece
+       tokenizer, served greedily on both engines: equal tokens, K1, K2
+       and K3 launched, K4 not;
+    3. ``eval_ppl`` over SURVEY.md at --seq-len 1024 (at most 16 chunks)
+       for none and for online_i8i8 + int8 KV: K2 launched 22 times a
+       chunk, the NLL finite."""
+    import os
+    cfgs, kernels, llama = port["config"], port["kernels"], port["llama"]
+    widths = dict(TINY)
+    ckpt = os.path.join(tmp, "tinyllama-hf")
+    os.makedirs(ckpt)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    floats = llama.init_params(cfgs.ModelConfig(**widths), gen,
+                               dtype=torch.bfloat16, device="cuda")
+    nbytes = write_hf_checkpoint(torch, floats, widths, ckpt)
+    del floats
+    pieces = sp_pieces(".", widths["vocab_size"])
+    with open(os.path.join(ckpt, "tokenizer.model"), "wb") as f:
+        f.write(sp_model_bytes(pieces))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{HF_LABEL}] wrote {nbytes / 1e9:.2f} GB of bf16 weights in 2 "
+        f"safetensors shards and a {len(pieces)}-piece tokenizer.model in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    common = port["common"]
+    parser = __import__("argparse").ArgumentParser()
+    common.add_model_args(parser)
+    common.add_generator_args(parser)
+    args = parser.parse_args([
+        "--device", "cuda", "--model-format", "hf", "--model-dir", ckpt,
+        "--quant-method", "online_i8i8", "--cache-quant-bit", "8",
+        "--kv-cache-max-tokens", "32768", "--max-running-batch", "16",
+        "--max-prefill-batch", "8", "--max-output-tokens-per-request",
+        "256"])
+    model_cfg, rcfg, gen_cfg = common.build_configs(args)
+    check(model_cfg.num_layers == 22 and model_cfg.cache_quant_bit == 8
+          and rcfg.model_format == "hf", f"hf path: configs {model_cfg}")
+    tokenizer = port["create_tokenizer"]("llama", rcfg.tokenizer_path)
+    t0 = time.perf_counter()
+    engine, kv_max, _ = port["create_engine"](model_cfg, rcfg, gen_cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = engine.weight_build_peak_bytes
+    log(f"[{HF_LABEL}] engine from the checkpoint in {load_s:.2f} s "
+        f"(safetensors read, each layer quantized as it is read); weight "
+        f"build peak {peak >> 20} MiB on {name_limit}")
+    rand, _, _ = port["create_engine"](
+        model_cfg, dataclasses.replace(rcfg, model_format="random"), gen_cfg,
+        rng_seed=SEED)
+    check(same_bytes(torch, engine._params, rand._params),
+          "hf path: the loaded parameters differ from the random engine's "
+          "of the same seed")
+    log(f"[{HF_LABEL}] loaded online_i8i8 parameters equal a random "
+        f"engine's (seed {SEED}) byte for byte")
+
+    # the first 8 paragraphs of SURVEY.md of 100-400 tokens
+    with open("SURVEY.md", encoding="utf-8") as f:
+        paragraphs = f.read().split("\n\n")
+    prompts, n_prompt = [], []
+    for text in paragraphs:
+        n = len(tokenizer.encode(text))
+        if 100 <= n <= 400 and len(prompts) < 8:
+            prompts.append(text)
+            n_prompt.append(n)
+    check(len(prompts) == 8, f"hf path: {len(prompts)} prompts")
+    # warm-up: each program key of the run visited twice (its eager first
+    # run, then its CUDA graph capture), so that the measured run replays
+    for i in range(2):
+        serve_prompts(port, engine, model_cfg, gen_cfg, kv_max, tokenizer,
+                      prompts, 32, 1000 + 100 * i)
+    kernels.reset_launch_counts()
+    elapsed, toks = serve_prompts(port, engine, model_cfg, gen_cfg, kv_max,
+                                  tokenizer, prompts, 32, 0)
+    counts = kernels.launch_counts()
+    _, toks_rand = serve_prompts(port, rand, model_cfg, gen_cfg, kv_max,
+                                 tokenizer, prompts, 32, 0)
+    check(toks == toks_rand, "hf path: greedy tokens differ from the "
+          "random engine's")
+    for name in ATTN + ("i8i8_matmul",):
+        check(counts[name] > 0, f"hf path: {name} never launched")
+    check(counts["w4a8_matmul"] == 0, "hf path: w4a8_matmul launched")
+    log(f"[{HF_LABEL}] 8 prompts of {min(n_prompt)}-{max(n_prompt)} "
+        f"sentencepiece tokens ({sum(n_prompt)} in all), 32 greedy tokens "
+        f"each in {elapsed:.3f} s: {256 / elapsed:.1f} generated tok/s on "
+        f"{name_limit}; equal to the random engine's; launches {counts}")
+    sample = tokenizer.decode(toks[0][:12])
+    log(f"[{HF_LABEL}] request 0 decodes to {sample!r}")
+    del engine, rand
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {HF_LABEL: dict(path=HF_LABEL, launches=counts, load_s=load_s,
+                          weight_build_peak_mib=peak >> 20,
+                          gen_tok_per_s=256 / elapsed,
+                          prompt_tokens=sum(n_prompt))}
+
+    for quant, extra in (("none", []),
+                         ("online_i8i8", ["--cache-quant-bit", "8"])):
+        label = f"eval_ppl {quant}" + (" int8-KV" if extra else "")
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        r = port["eval_ppl"].main([
+            "--device", "cuda", "--model-dir", ckpt, "--quant-method", quant,
+            "--text-file", "SURVEY.md", "--seq-len", "1024",
+            "--max-chunks", "16"] + extra)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        layers = widths["num_layers"]
+        check(np.isfinite(r["mean_nll"]) and r["tokens"] > 0,
+              f"{label}: NLL {r['mean_nll']} over {r['tokens']} tokens")
+        check(counts["paged_prefill_attention"] == layers * r["chunks"],
+              f"{label}: K2 launched {counts['paged_prefill_attention']} "
+              f"times for {r['chunks']} chunks of {layers} layers")
+        check((counts["i8i8_matmul"] > 0) == (quant == "online_i8i8")
+              and counts["w4a8_matmul"] == 0, f"{label}: launches {counts}")
+        steady = r["chunk_ms"][1:] or r["chunk_ms"]
+        log(f"[{label}] tokens {r['tokens']}, mean NLL "
+            f"{r['mean_nll']:.4f}, perplexity {r['perplexity']:.4f} "
+            f"(random weights), {r['chunks']} chunks of 1,024 tokens: "
+            f"{sum(steady) / len(steady):.2f} ms a chunk after the first "
+            f"({r['chunk_ms'][0]:.1f} ms) on {name_limit}; K2 launched "
+            f"{counts['paged_prefill_attention']} times at Qp=1024 "
+            f"({layers} a chunk); launches {counts}")
+        out[label] = dict(path=label, launches=counts, tokens=r["tokens"],
+                          mean_nll=r["mean_nll"],
+                          perplexity=r["perplexity"],
+                          ms_per_chunk=sum(steady) / len(steady))
+    return out
+
+
+def nll_cross_check(torch, port, widths):
+    """make_nll_fn at 2 layers and ``widths``, f32, online_i8i8 weights
+    and int8 KV: cuda (K2 at Qp = 512, K3) against cpu (plain versions) on
+    the same weights and tokens, 500 valid of 512. The masks must be
+    equal and the per-position NLLs within the step cross-check's
+    tolerance: three times the largest move that a 1e-6 relative
+    perturbation of the attention outputs causes on the cpu (over
+    PERTURB_SEEDS draws), plus 1e-4 of the largest NLL."""
+    llama, kv = port["llama"], port["kv"]
+    cfg = port["ModelConfig"](**dict(widths, num_layers=2,
+                                     dtype="float32"))
+    length, n_valid = 512, 500
+    pages = length // PS
+    spec = kv.CacheSpec(num_layers=2, num_pages=pages, page_size=PS,
+                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                        quant_bit=8, quant_group=8, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    p_gpu = llama.quantize_model_params(
+        llama.init_params(cfg, gen, dtype=torch.float32, device="cuda"),
+        "online_i8i8")
+    p_cpu = params_to_cpu(p_gpu)
+    rng = np.random.default_rng(SEED + 13)
+    toks = np.zeros(length, np.int32)
+    toks[:n_valid] = rng.integers(3, cfg.vocab_size, n_valid)
+    nll_fn = llama.make_nll_fn(cfg, spec, quant_method="online_i8i8")
+
+    def run(params, dev):
+        cache, scale = kv.init_cache(spec, dev)
+        pt = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+        nll, mask = nll_fn(params, cache, scale,
+                           torch.from_numpy(toks).to(dev), n_valid, pt)
+        return nll.cpu().numpy(), mask.cpu().numpy()
+
+    kernels = port["kernels"]
+    k2 = kernels.launch_counts()["paged_prefill_attention"]
+    n_g, m_g = run(p_gpu, "cuda")
+    k2 = kernels.launch_counts()["paged_prefill_attention"] - k2
+    n_c, m_c = run(p_cpu, "cpu")
+    check((m_g == m_c).all() and int(m_c.sum()) == n_valid - 1,
+          "nll cross-check: masks differ")
+    sens = []
+    for seed in range(PERTURB_SEEDS):
+        with perturbed_attention(torch, port["pk"], 1e-6,
+                                 torch.Generator().manual_seed(seed)):
+            n_p, _ = run(p_cpu, "cpu")
+        sens.append(float(np.abs(n_p - n_c)[m_c].max()))
+    check(np.isfinite(n_g[m_g]).all(), "nll cross-check: NLL not finite")
+    err = float(np.abs(n_g - n_c)[m_c].max())
+    scale = float(np.abs(n_c[m_c]).max())
+    tol = 3 * max(sens) + 1e-4 * scale
+    check(err <= tol, f"nll cross-check: max|diff| {err} > {tol}")
+    check(k2 == 2, f"nll cross-check: K2 launched {k2} times on cuda")
+    return dict(err=err, tol=tol, sensitivity=sens, scale=scale,
+                mean_cuda=float(n_g[m_g].mean()),
+                mean_cpu=float(n_c[m_c].mean()))
+
+
+def cpu_mean_nll(job):
+    """One cpu score of the accuracy harness, in a worker process: the
+    mean NLL of ``eval_nll`` on the cpu (plain versions), its attention
+    outputs perturbed by ``perturb = (eps, seed)`` unless None."""
+    import torch
+    from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention
+    from ppl.llm.serving_tpu_torch.tools import eval_accuracy_delta as ead
+    perturb, cfg, params, held, seq_len, chunks, kw = job
+    torch.set_num_threads(2)
+
+    def mean():
+        return float(ead.eval_nll(cfg, params, held, seq_len, chunks,
+                                  device="cpu", **kw)[0])
+
+    if perturb is None:
+        return mean()
+    with perturbed_attention(torch, paged_attention, perturb[0],
+                             torch.Generator().manual_seed(perturb[1])):
+        return mean()
+
+
+def accuracy_harness(torch, port, name_limit):
+    """``eval_accuracy_delta`` on the card with its default probe (hidden
+    256, 4 layers, 8/4 heads, seq 256, page 16) and 300 train steps; its
+    verdicts and KL CIs printed as measured (a FAIL is reported, not
+    hidden). Hard check: every config's mean NLL from the card kernels
+    agrees with the same weights scored through the plain versions on
+    the cpu: float32 configs within 1e-4 relative; bf16 and quantized
+    configs within three times the largest move that a perturbation of
+    the attention outputs causes on the cpu (over PERTURB_SEEDS draws;
+    1e-6 relative in f32, 2^-8 in bf16, about one rounding of each),
+    plus 1e-4 relative."""
+    ead, kernels = port["eval_accuracy_delta"], port["kernels"]
+    args = ead.build_parser().parse_args(["--device", "cuda",
+                                          "--train-steps", "300"])
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    r = ead.run(args)
+    counts = kernels.launch_counts()
+    card_s = time.perf_counter() - t0
+    doc = r["doc"]
+    for name, res in doc["results"].items():
+        ci = res.get("kl_ci95")
+        log(f"[accuracy] {name}: ppl {res['ppl']:.4f}, mean NLL "
+            f"{res['mean_nll']:.6f}" + ("" if ci is None else
+                                        f", delta ppl {res['delta_ppl']:+.4f}"
+                                        f" CI [{res['ci95'][0]:+.4f}, "
+                                        f"{res['ci95'][1]:+.4f}], KL "
+                                        f"{res['kl_per_tok']:.6f} nats/tok CI"
+                                        f" [{ci[0]:.6f}, {ci[1]:.6f}]"))
+    log(f"[accuracy] power {'ok' if doc['power_ok'] else 'NO POWER'}, "
+        f"int8 budget {doc['budget_nats']:.6f} nats/tok: {doc['verdict']} "
+        f"(worst {doc['worst_config']} upper CI {doc['worst_kl_ci95']:.6f});"
+        f" int4 budget {doc['budget4_nats']:.6f}: {doc['verdict_int4']}; "
+        f"{card_s:.1f} s on {name_limit}; launches {counts}")
+    for name in ATTN[1:] + ("i8i8_matmul", "w4a8_matmul"):
+        check(counts[name] > 0, f"accuracy harness: {name} never launched")
+    # the cpu scores: each config plain, and the bf16 and quantized ones
+    # under PERTURB_SEEDS perturbations, spread over 4 processes
+    jobs = []
+    for name, kw in ead.CONFIGS:
+        params = r["control_params"] if name.startswith("CONTROL") \
+            else r["params"]
+        job = (r["cfg"], params, r["heldout"], args.seq_len,
+               args.eval_chunks, kw)
+        jobs.append((name, None) + job)
+        if kw["quant_method"] != "none" or kw["cache_quant"] \
+                or kw["dtype"] != "float32":
+            eps = 1e-6 if kw["dtype"] == "float32" else 2.0 ** -8
+            jobs += [(name, (eps, seed)) + job
+                     for seed in range(PERTURB_SEEDS)]
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(4) as pool:
+        means = pool.map(cpu_mean_nll, [j[1:] for j in jobs])
+    agree = {}
+    for name, _ in ead.CONFIGS:
+        mine = [(j[1], m) for j, m in zip(jobs, means) if j[0] == name]
+        want = next(m for p, m in mine if p is None)
+        sens = [abs(m - want) for p, m in mine if p is not None]
+        got = doc["results"][name]["mean_nll"]
+        tol = 3 * max(sens, default=0.0) + 1e-4 * abs(want)
+        err = abs(got - want)
+        log(f"[accuracy] {name}: mean NLL cuda {got:.6f}, cpu {want:.6f}, "
+            f"|diff| {err:.3g} (tol {tol:.3g}"
+            + (f"; perturbations move it {', '.join(f'{v:.3g}' for v in sens)}"
+               f" on cpu" if sens else "") + ")")
+        check(err <= tol, f"accuracy harness {name}: mean NLL cuda {got} "
+              f"vs cpu {want}: |diff| {err} > {tol}")
+        agree[name] = dict(cuda=got, cpu=want, err=err, tol=tol)
+    return dict(path="accuracy harness", launches=counts, doc=doc,
+                agree=agree, seconds=card_s)
+
+
 def main_data_parallel(n_rep):
     """``python3 chip_smoke.py --data-parallel N`` on a machine with N
     cards: the card names, the build, and :func:`data_parallel_path`."""
@@ -2184,8 +2744,11 @@ def main():
                                                          kv_pool_tokens)
         from ppl.llm.serving_tpu_torch.tokenizer.factory import ByteTokenizer
         from ppl.llm.serving_tpu_torch.serving.proto import llm_pb2
+        from ppl.llm.serving_tpu_torch.tokenizer import create_tokenizer
         from ppl.llm.serving_tpu_torch.tools import (client_qps_measure,
-                                                     llm_server)
+                                                     common,
+                                                     eval_accuracy_delta,
+                                                     eval_ppl, llm_server)
     except ImportError as e:
         log(f"FAIL: run chip_smoke.py from the root of a checkout ({e})")
         return 1
@@ -2204,7 +2767,9 @@ def main():
                 LocalConnection=LocalConnection, LLMGenerator=LLMGenerator,
                 Request=Request, ByteTokenizer=ByteTokenizer,
                 llm_server=llm_server, client_qps_measure=client_qps_measure,
-                llm_pb2=llm_pb2)
+                llm_pb2=llm_pb2, common=common, eval_ppl=eval_ppl,
+                eval_accuracy_delta=eval_accuracy_delta,
+                create_tokenizer=create_tokenizer)
     t_start = time.perf_counter()
     try:
         name_limit = gpu_name_and_limit()
@@ -2260,6 +2825,14 @@ def main():
                 torch, timer, paged_attention, attn_ops, kv_cache, F, widths,
                 quantized, which, label, alibi=True)
             torch.cuda.empty_cache()
+        # the NLL forward's row (make_nll_fn, eval_ppl): TinyLlama widths,
+        # bf16 and int8 KV
+        for quantized, label in ((False, "tinyllama"),
+                                 (True, "tinyllama int8-kv")):
+            results["paged_prefill_attention"] += prefill_cases(
+                torch, timer, paged_attention, attn_ops, kv_cache, F, TINY,
+                quantized, 1, label, nll=True)
+        torch.cuda.empty_cache()
         for widths, label, ts in ((TINY, "tinyllama", (8, 1024)),
                                   (BAICHUAN13B, "baichuan-13b",
                                    (8, 1024, 4096))):
@@ -2328,6 +2901,15 @@ def main():
                 f"(tol {r['cache_tol']:.3g}); greedy tokens cuda "
                 f"{r['tokens_cuda']} cpu {r['tokens_cpu']} (equal on "
                 f"{r['rows_decided']}/{r['rows']} decided rows)")
+        nx = nll_cross_check(torch, port, LLAMA7B)
+        log(f"[nll] 2-layer D={LLAMA7B['hidden_dim']} f32 online_i8i8 + "
+            f"int8 KV make_nll_fn, one 512-token row (500 valid), cuda "
+            f"(K2 at Qp=512, K3) vs cpu: masks equal, NLL max|diff| "
+            f"{nx['err']:.3g} (tol {nx['tol']:.3g}; max NLL "
+            f"{nx['scale']:.3g}; 1e-6 attention perturbations move it "
+            + ", ".join(f"{v:.3g}" for v in nx["sensitivity"])
+            + f" on cpu); mean NLL cuda {nx['mean_cuda']:.6f} cpu "
+            f"{nx['mean_cpu']:.6f}")
         torch.cuda.empty_cache()
         log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
 
@@ -2344,6 +2926,12 @@ def main():
                 t0 = time.perf_counter()
                 e2e[label] = path_fn(torch, port, name_limit, tmp)
                 log(f"[phase 5 {label}] {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            e2e.update(hf_checkpoint_path(torch, port, name_limit, tmp))
+            log(f"[phase 5 {HF_LABEL}] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        e2e["accuracy harness"] = accuracy_harness(torch, port, name_limit)
+        log(f"[phase 5 accuracy harness] {time.perf_counter() - t0:.1f} s")
         base = e2e["llama2-7b w4a8 int8-kv"]["tokens"]
         for label in ("llama2-7b w4a8 int8-kv blocks",
                       "llama2-7b w4a8 int8-kv block-tail"):

@@ -235,7 +235,9 @@ class GeneratorConfig:
 class ResourceConfig:
     """Model location + device resources."""
 
-    model_format: str = "random"  # "random" only so far
+    # "hf": a HuggingFace safetensors checkpoint in model_dir; "random":
+    # weights drawn from a seed (tests and benchmarks)
+    model_format: str = "hf"
     model_dir: str = ""
     tokenizer_path: str = ""
 
@@ -302,9 +304,8 @@ class ResourceConfig:
         if self.block_tail == "on" and self.multi_step > 64:
             # K1's tail phase reads the block's rows as one 64-row chunk
             raise ConfigError("block_tail='on' takes multi_step <= 64")
-        if self.model_format != "random":
-            raise not_ported(f"model_format={self.model_format!r} "
-                             "(weights load as 'random' only)")
+        if self.model_format not in ("hf", "random"):
+            raise ConfigError(f"unknown model_format {self.model_format}")
         if self.quantize_lm_head and self.quant_method == "none":
             raise ConfigError("quantize_lm_head requires quant_method "
                               "online_i8i8 or online_w4a8")

@@ -98,15 +98,64 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     package's ``init_params``).
 
     With ``quantize`` (``online_i8i8`` / ``online_w4a8``) each layer is
-    quantized (:func:`quantize_layer_params`) as soon as it is drawn and
-    its float weights dropped before the next is drawn, and the lm_head
+    quantized as soon as it is drawn (:func:`build_params`), and the
+    lm_head too when ``quantize_lm_head``. The draws are the same, in the
+    same order, so the result equals ``quantize_model_params(
+    init_params(...), quantize, quantize_lm_head)`` byte for byte."""
+    d, hd = cfg.hidden_dim, cfg.head_dim
+    n_q, n_kv = cfg.num_heads, cfg.num_kv_heads
+    g = n_q // n_kv
+
+    def w(shape, scale):
+        x = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    def ones():
+        return torch.ones((d,), dtype=dtype, device=device)
+
+    s = d ** -0.5
+
+    def layer(_):
+        lp = {
+            "attn_norm": ones(),
+            "ffn_norm": ones(),
+            "wqkv": w((d, n_kv, g + 2, hd), s),
+            "wo": w((n_q * hd, d), (n_q * hd) ** -0.5),
+            "w_gate_up": w((d, 2, cfg.intermediate_dim), s),
+            "w_down": w((cfg.intermediate_dim, d),
+                        cfg.intermediate_dim ** -0.5),
+        }
+        if cfg.attn_bias:
+            lp["bqkv"] = w((n_kv, g + 2, hd), 0.02)
+            lp["bo"] = w((d,), 0.02)
+        return lp
+
+    return build_params(cfg, w((cfg.vocab_size, d), 1.0), layer, ones,
+                        lambda: w((d, cfg.vocab_size), s), dtype=dtype,
+                        device=device, quantize=quantize,
+                        quantize_lm_head=quantize_lm_head)
+
+
+def build_params(cfg: ModelConfig, embedding: torch.Tensor, make_layer,
+                 make_final_norm, make_lm_head, dtype=torch.bfloat16,
+                 device="cpu", quantize: str = "none",
+                 quantize_lm_head: bool = False) -> Dict[str, Any]:
+    """Assemble a model's parameters one layer at a time: ``make_layer(i)``
+    returns layer i's float weights, ``make_final_norm()`` the final norm
+    and ``make_lm_head()`` the float lm_head ``[D, V]``, each called once,
+    in that order, after the embedding was made.
+
+    With ``quantize`` (``online_i8i8`` / ``online_w4a8``) each layer is
+    quantized (:func:`quantize_layer_params`) as soon as it is made and
+    its float weights dropped before the next is made, and the lm_head
     too when ``quantize_lm_head``: no more than one float layer is alive
-    at a time. The draws are the same, in the same order, so the result
-    equals ``quantize_model_params(init_params(...), quantize,
-    quantize_lm_head)`` byte for byte. On cuda each layer's quantized
-    tensors are allocated before its float weights are drawn, right after
-    the allocator's cache is emptied, so no temporary shares their memory
-    segments and every temporary's segment can be given back."""
+    at a time. The result equals quantizing every layer afterwards
+    (:func:`quantize_model_params`) byte for byte. On cuda each layer's
+    quantized tensors are allocated before its float weights are made,
+    right after the allocator's cache is emptied, so no temporary shares
+    their memory segments and every temporary's segment can be given
+    back."""
     d, hd = cfg.hidden_dim, cfg.head_dim
     n_q, n_kv = cfg.num_heads, cfg.num_kv_heads
     g = n_q // n_kv
@@ -114,7 +163,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     cuda = torch.device(device).type == "cuda"
     shapes = {"wqkv": (d, n_kv, g + 2, hd), "wo": (n_q * hd, d),
               "w_gate_up": (d, 2, cfg.intermediate_dim),
-              "w_down": (cfg.intermediate_dim, d)}
+              "w_down": (cfg.intermediate_dim, d),
+              "lm_head": (d, cfg.vocab_size)}
 
     def empty_quantized(quantizer, names):
         """Empty tensors shaped and typed as ``quantizer``'s output for
@@ -126,49 +176,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return {k: torch.empty(v.shape, dtype=v.dtype, device=device)
                 for k, v in meta.items()}
 
-    def w(shape, scale):
-        x = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * scale).to(dtype)
-
-    def ones():
-        return torch.ones((d,), dtype=dtype, device=device)
-
-    s = d ** -0.5
-    params = {"embedding": w((cfg.vocab_size, d), 1.0), "layers": []}
-    for _ in range(cfg.num_layers):
+    params = {"embedding": embedding, "layers": []}
+    for i in range(cfg.num_layers):
         if quantize is not None:
             out = empty_quantized(
                 lambda lp: quantize_layer_params(lp, quantize), _MATMULS)
-        layer = {
-            "attn_norm": ones(),
-            "ffn_norm": ones(),
-            "wqkv": w((d, n_kv, g + 2, hd), s),
-            "wo": w((n_q * hd, d), (n_q * hd) ** -0.5),
-            "w_gate_up": w((d, 2, cfg.intermediate_dim), s),
-            "w_down": w((cfg.intermediate_dim, d),
-                        cfg.intermediate_dim ** -0.5),
-        }
-        if cfg.attn_bias:
-            layer["bqkv"] = w((n_kv, g + 2, hd), 0.02)
-            layer["bo"] = w((d,), 0.02)
+        layer = make_layer(i)
         if quantize is not None:
             layer = quantize_layer_params(layer, quantize)
             for k, v in out.items():
                 layer[k] = v.copy_(layer[k])
         params["layers"].append(layer)
-    params["final_norm"] = ones()
-    shapes["lm_head"] = (d, cfg.vocab_size)
+    params["final_norm"] = make_final_norm()
     if quantize is not None and quantize_lm_head:
         out = empty_quantized(
             lambda lp: _quantize_lm_head(lp["lm_head"], quantize),
             ("lm_head",))
-        q = _quantize_lm_head(w(shapes["lm_head"], s), quantize)
+        q = _quantize_lm_head(make_lm_head(), quantize)
         params.update({k: v.copy_(q[k]) for k, v in out.items()})
     else:
         if cuda:
             torch.cuda.empty_cache()
-        params["lm_head"] = w(shapes["lm_head"], s)
+        params["lm_head"] = make_lm_head()
     return params
 
 
@@ -303,6 +332,69 @@ def _gate_up_act(matmul, h: torch.Tensor, p: Dict[str, Any],
     return torch.nn.functional.silu(gu[:, 0]) * gu[:, 1]
 
 
+def pack_new_kv(k: torch.Tensor, v: torch.Tensor, spec: CacheSpec):
+    """A layer's new K/V as packed rows in the cache dtype [T, KVH, 2*shd]
+    and, with int8 KV, their scale rows [T, scale_lanes] (else None): the
+    bytes a cache write lands."""
+    if not spec.quantized:
+        return kv_ops.pack_kv_rows(k.to(spec.dtype), v.to(spec.dtype),
+                                   spec), None
+    qk, sk = kv_ops.quantize_kv(k, spec.quant_group)
+    qv, sv = kv_ops.quantize_kv(v, spec.quant_group)
+    return (kv_ops.pack_kv_rows(qk, qv, spec),
+            kv_ops.pack_scale_rows(sk, sv, spec))
+
+
+def _layer_halves(cfg: ModelConfig, quant_method: str):
+    """The two halves of a decoder layer around its attention, for the
+    step and the NLL forward: ``before(p, x, pos) -> (q [T, Hq, hd],
+    k [T, KVH, hd], v)`` (norm, qkv matmul, bias, RoPE) and ``after(p, x,
+    attn [T, Hq*hd]) -> x`` (wo, bias, residual, norm, gate|up, down,
+    residual)."""
+    n_q, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = n_q // n_kv
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    compute_dtype = torch_dtype(cfg.dtype)
+    matmul = _make_matmul(quant_method)
+    use_alibi = cfg.position_encoding == "alibi"
+    attn_bias = cfg.attn_bias
+
+    def before(p, x, pos):
+        h = rms_norm(x, p["attn_norm"], eps)
+        t = x.shape[0]
+        qkv = matmul(h, p, "wqkv", compute_dtype)    # [T, KVH, G+2, hd]
+        if attn_bias:
+            qkv = qkv + p["bqkv"].to(compute_dtype)
+        q = qkv[:, :, :g, :].reshape(t, n_q, hd)
+        k = qkv[:, :, g, :]
+        v = qkv[:, :, g + 1, :]
+        if not use_alibi:
+            q = apply_rope(q, pos, theta)
+            k = apply_rope(k, pos, theta)
+        return q, k, v
+
+    def after(p, x, attn):
+        o = matmul(attn, p, "wo", compute_dtype)
+        if attn_bias:
+            o = o + p["bo"].to(o.dtype)
+        x = x + o.to(compute_dtype)
+        h = rms_norm(x, p["ffn_norm"], eps)
+        act = _gate_up_act(matmul, h, p, compute_dtype)
+        down = matmul(act.to(compute_dtype).contiguous(), p, "w_down",
+                      compute_dtype)
+        return x + down.to(compute_dtype)
+
+    return before, after
+
+
+def _lm_head(params, x: torch.Tensor, matmul) -> torch.Tensor:
+    """f32 logits of the hidden rows ``x``; the quantized lm_head when the
+    parameters hold one (``lm_head_q``)."""
+    if "lm_head_q" in params:
+        return matmul(x, params, "lm_head", torch.float32)
+    return torch.matmul(x, params["lm_head"]).to(torch.float32)
+
+
 def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                  enable_penalty: bool = False,
                  return_logits: bool = False,
@@ -330,13 +422,11 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
     follows the parameters (an ``lm_head_q`` key).
     """
     n_q, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = n_q // n_kv
-    eps, theta = cfg.norm_eps, cfg.rope_theta
+    eps = cfg.norm_eps
     compute_dtype = torch_dtype(cfg.dtype)
-    cache_dt = spec.dtype
     matmul = _make_matmul(quant_method)
+    before, after = _layer_halves(cfg, quant_method)
     use_alibi = cfg.position_encoding == "alibi"
-    attn_bias = cfg.attn_bias
     # ALiBi slopes, moved to a device at the step's first visit there,
     # which is eager: a host-to-device copy inside a CUDA graph capture
     # would fail it
@@ -349,19 +439,6 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
         if dev not in slopes_on:
             slopes_on[dev] = slopes_host.to(dev)
         return slopes_on[dev]
-
-    def prep_new_kv(k, v):
-        """This layer's new K/V as packed rows in the cache dtype
-        [T, KVH, 2*shd] and, with int8 KV, their scale rows
-        [T, scale_lanes] (else None): the bytes the end-of-step write
-        lands, built once per layer."""
-        if not spec.quantized:
-            return kv_ops.pack_kv_rows(k.to(cache_dt), v.to(cache_dt),
-                                       spec), None
-        qk, sk = kv_ops.quantize_kv(k, spec.quant_group)
-        qv, sv = kv_ops.quantize_kv(v, spec.quant_group)
-        return (kv_ops.pack_kv_rows(qk, qv, spec),
-                kv_ops.pack_scale_rows(sk, sv, spec))
 
     def step(params, kv_cache: torch.Tensor,
              kv_scale: Optional[torch.Tensor], count_map: torch.Tensor,
@@ -420,18 +497,8 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                                dtype=torch.bfloat16, device=dev)
                    if spec.quantized else None)
         for li, p in enumerate(params["layers"]):
-            h = rms_norm(x, p["attn_norm"], eps)
-            t = x.shape[0]
-            qkv = matmul(h, p, "wqkv", compute_dtype)    # [T, KVH, G+2, hd]
-            if attn_bias:
-                qkv = qkv + p["bqkv"].to(compute_dtype)
-            q = qkv[:, :, :g, :].reshape(t, n_q, hd)
-            k = qkv[:, :, g, :]
-            v = qkv[:, :, g + 1, :]
-            if not use_alibi:
-                q = apply_rope(q, flat_pos, theta)
-                k = apply_rope(k, flat_pos, theta)
-            rows, srows = prep_new_kv(k, v)
+            q, k, v = before(p, x, flat_pos)
+            rows, srows = pack_new_kv(k, v, spec)
             rows_l[li] = rows
             if srows is not None:
                 srows_l[li] = srows
@@ -456,18 +523,8 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
                     fresh_scale=fscale, alibi=alibi)
             else:
                 attn_p = q.new_zeros((0, qp, n_q, hd))
-            attn = torch.cat([attn_d.reshape(bd, n_q * hd),
-                              attn_p.reshape(bp * qp, n_q * hd)])
-            o = matmul(attn, p, "wo", compute_dtype)
-            if attn_bias:
-                o = o + p["bo"].to(o.dtype)
-            x = x + o.to(compute_dtype)
-
-            h = rms_norm(x, p["ffn_norm"], eps)
-            act = _gate_up_act(matmul, h, p, compute_dtype)
-            down = matmul(act.to(compute_dtype).contiguous(), p, "w_down",
-                          compute_dtype)
-            x = x + down.to(compute_dtype)
+            x = after(p, x, torch.cat([attn_d.reshape(bd, n_q * hd),
+                                       attn_p.reshape(bp * qp, n_q * hd)]))
 
         if not defer_scatter:
             kv_ops.append_kv_rows_block(kv_cache, kv_scale, rows_l, srows_l,
@@ -479,12 +536,7 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
             bd + torch.arange(bp, **i32) * qp
             + torch.clamp(inp.prefill_len - 1, min=0),
         ])
-        hidden = x[last_idx.long()].contiguous()
-        if "lm_head_q" in params:
-            logits = matmul(hidden, params, "lm_head", torch.float32)
-        else:
-            logits = torch.matmul(hidden, params["lm_head"]).to(
-                torch.float32)
+        logits = _lm_head(params, x[last_idx.long()].contiguous(), matmul)
 
         if enable_penalty:
             # padding rows carry the trash batch slot: no masking needed
@@ -502,6 +554,70 @@ def make_step_fn(cfg: ModelConfig, spec: CacheSpec,
         return out
 
     return step
+
+
+def make_nll_fn(cfg: ModelConfig, spec: CacheSpec,
+                quant_method: str = "none", return_logprobs: bool = False):
+    """Teacher-forced token NLLs for perplexity evaluation (the JAX
+    package's ``make_nll_fn``).
+
+    ``nll(params, kv_cache, kv_scale, tokens i32[L], n_valid, page_table
+    i32[1, P]) -> (nll f32[L-1], mask bool[L-1])``, and with
+    ``return_logprobs`` also the [L-1, V] f32 log-softmax: the serving
+    step's layers over one prefill row of the whole (padded) sequence at
+    start 0, with logits at every position. The matmuls follow
+    ``quant_method`` (K3 or K4 at T = L); attention is K2 with Qp = L.
+
+    Each layer's K/V rows are written into the cache (positions past
+    ``n_valid`` into the trash page) and K2 reads the chunk's keys from
+    those same rows: in the cache dtype, and with int8 KV quantized, with
+    their scale rows, as the JAX function reads them back from its cache.
+    Eager, one call per chunk; ``kv_cache``/``kv_scale`` are scratch,
+    written in place."""
+    n_q, hd = cfg.num_heads, cfg.head_dim
+    compute_dtype = torch_dtype(cfg.dtype)
+    matmul = _make_matmul(quant_method)
+    before, after = _layer_halves(cfg, quant_method)
+    slopes = (attn_ops.alibi_slopes(n_q)
+              if cfg.position_encoding == "alibi" else None)
+
+    def nll(params, kv_cache, kv_scale, tokens, n_valid: int, page_table):
+        dev = kv_cache.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        length = tokens.shape[0]
+        pos = torch.arange(length, **i32)
+        slots = kv_ops.token_slots(page_table, pos, torch.zeros_like(pos),
+                                   spec.page_size)
+        slots = torch.where(pos < n_valid, slots,
+                            spec.trash_page * spec.page_size).long()
+        start = torch.zeros(1, **i32)
+        new_len = torch.full((1,), n_valid, **i32)
+        alibi = None if slopes is None else slopes.to(dev)
+        x = params["embedding"][tokens.long()].to(compute_dtype)
+        for li, p in enumerate(params["layers"]):
+            q, k, v = before(p, x, pos)
+            rows, srows = pack_new_kv(k, v, spec)
+            kv_cache.index_copy_(1, li * spec.num_slots + slots,
+                                 rows.permute(1, 0, 2))
+            if spec.quantized:
+                kv_scale.index_copy_(0, li * spec.num_slots + slots, srows)
+            attn = attn_kernels.paged_prefill_attention(
+                q[None].contiguous(), kv_cache, kv_scale, page_table, start,
+                new_len, spec, layer=li,
+                fresh_kv=rows.permute(1, 0, 2)[None].contiguous(),
+                fresh_scale=None if srows is None else srows[None],
+                alibi=alibi)[0]
+            x = after(p, x, attn.reshape(length, n_q * hd))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logprobs = torch.log_softmax(_lm_head(params, x, matmul), dim=-1)
+        nll_all = -logprobs[:-1].gather(
+            1, tokens[1:, None].long())[:, 0]
+        mask = torch.arange(length - 1, device=dev) < (n_valid - 1)
+        if return_logprobs:
+            return nll_all, mask, logprobs[:-1]
+        return nll_all, mask
+
+    return nll
 
 
 def make_multi_step_fn(cfg: ModelConfig, spec: CacheSpec, num_steps: int,

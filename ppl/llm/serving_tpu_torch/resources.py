@@ -25,6 +25,21 @@ from .ops.kv_cache import CacheSpec
 logger = logging.getLogger("ppl.llm.serving_tpu_torch.resources")
 
 
+def require_device(name: str) -> torch.device:
+    """``name`` as a device; raises when it is cuda and PyTorch sees no
+    such GPU: nothing of the port carries on on the CPU unasked."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' asked for but torch.cuda.is_available() is "
+            "false; pass device='cpu' (--device cpu) to run on the CPU")
+    if device.type == "cuda" and (device.index or 0) >= \
+            torch.cuda.device_count():
+        raise RuntimeError(f"device {device} asked for but PyTorch sees "
+                           f"{torch.cuda.device_count()} GPU(s)")
+    return device
+
+
 def kv_pool_tokens(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
                    free_bytes: int, reserved_bytes: int = 0) -> int:
     """The KV pool's tokens as :func:`create_engine` serves them:
@@ -56,15 +71,7 @@ def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
     those that validation makes."""
     model_cfg.validate()
     resource_cfg.validate()
-    device = torch.device(resource_cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' asked for but torch.cuda.is_available() is "
-            "false; pass device='cpu' (--device cpu) to run on the CPU")
-    if device.type == "cuda" and (device.index or 0) >= \
-            torch.cuda.device_count():
-        raise RuntimeError(f"device {device} asked for but PyTorch sees "
-                           f"{torch.cuda.device_count()} GPU(s)")
+    device = require_device(resource_cfg.device)
     auto = not resource_cfg.kv_cache_max_tokens
     cuda = device.type == "cuda"
     if validate_grid is None:

@@ -11,7 +11,6 @@ from __future__ import annotations
 import os
 from typing import List, Optional, Sequence
 
-from ..config import ConfigError
 from .base import Tokenizer
 
 # model_type -> prepend BOS on encode?
@@ -96,9 +95,8 @@ def create_tokenizer(model_type: str, path: str,
         from .hf_tokenizer import HFTokenizer
         backend = HFTokenizer(path, config_path)
     elif tokenizer_type == "sentencepiece":
-        raise ConfigError(
-            "the sentencepiece tokenizer is not yet ported to "
-            "serving_tpu_torch (use an HF tokenizer.json or 'dummy')")
+        from .sp_tokenizer import SPTokenizer
+        backend = SPTokenizer(path)
     else:
         raise ValueError(f"unknown tokenizer_type {tokenizer_type}")
 

@@ -24,15 +24,18 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="where the engine runs: cuda launches the CUDA "
                         "kernels, cpu runs their plain PyTorch versions")
     p.add_argument("--model-dir", default="",
-                   help="HF checkpoint dir (its config.json gives the "
-                        "widths; weights load as random so far)")
+                   help="HF checkpoint dir: config.json, *.safetensors "
+                        "and tokenizer.model or tokenizer.json")
     p.add_argument("--model-param-path", default="",
-                   help="exporter params.json (reference-compatible)")
-    p.add_argument("--model-format", default="random", choices=["random"])
+                   help="exporter params.json (reference-compatible); "
+                        "defaults to <model-dir>/config.json as HF config")
+    p.add_argument("--model-format", default="hf", choices=["hf", "random"],
+                   help="hf: load the safetensors of --model-dir; random: "
+                        "weights drawn from a seed")
     p.add_argument("--model-type", default="llama")
     p.add_argument("--tokenizer-path", default="")
     p.add_argument("--tokenizer-type", default=None,
-                   choices=[None, "hf", "dummy"])
+                   choices=[None, "hf", "sentencepiece", "dummy"])
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--quant-method", default="none",
@@ -42,6 +45,10 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "and per-token int8 activations")
     p.add_argument("--quantize-lm-head", action="store_true",
                    help="also quantize the lm_head matmul")
+    p.add_argument("--cache-quant-bit", type=int, default=None,
+                   choices=[0, 8],
+                   help="override the KV cache format: 8 = int8 with "
+                        "group-8 scales, 0 = the model dtype")
     p.add_argument("--page-size", type=int, default=128)
     p.add_argument("--cache-mode", type=int, default=1, choices=[0, 1])
     p.add_argument("--max-tokens-scale", type=float, default=0.94)
@@ -88,6 +95,10 @@ def add_generator_args(p: argparse.ArgumentParser) -> None:
                    help="feed long prompts in chunks of at most N tokens "
                         "per step (0 = whole prompt in one step)")
     p.add_argument("--profile-step-interval", type=int, default=100)
+    p.add_argument("--prefill-admission-cadence", type=int, default=1,
+                   help="N (default 1): after a prefill-carrying step, run "
+                        "N pure-decode blocks before admitting more "
+                        "prefills; 0: admit every step")
     p.add_argument("--speculative-blocks", type=int, default=1,
                    help="decode-block pipeline depth (0 disables "
                         "speculative block dispatch)")
@@ -110,6 +121,9 @@ def build_configs(args):
         model_cfg = ModelConfig.from_hf_config(
             cfg_json, dtype=args.dtype, cache_mode=args.cache_mode,
             page_size=args.page_size)
+    if args.cache_quant_bit is not None:
+        model_cfg.cache_quant_bit = args.cache_quant_bit
+        model_cfg.cache_quant_group = 8 if args.cache_quant_bit == 8 else 1
 
     resource_cfg = ResourceConfig(
         model_format=args.model_format,
@@ -150,6 +164,7 @@ def build_configs(args):
         enable_profiling=args.enable_profiling,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         speculative_blocks=args.speculative_blocks,
+        prefill_admission_cadence=args.prefill_admission_cadence,
         trace_dir=args.trace_dir,
     )
     return model_cfg, resource_cfg, gen_cfg

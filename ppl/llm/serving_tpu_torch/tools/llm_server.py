@@ -4,6 +4,8 @@ frontend and serves ``LLMService.Generation`` streams, wire-compatible
 with the JAX package's server and its clients.
 
     python -m ppl.llm.serving_tpu_torch.tools.llm_server \\
+        --model-dir <HF checkpoint dir> [--device cpu] [--port 23333]
+    python -m ppl.llm.serving_tpu_torch.tools.llm_server \\
         --model-format random --model-param-path params.json \\
         --tokenizer-type dummy [--device cpu] [--port 23333]
 

@@ -3,6 +3,12 @@
 full generator stack with a LocalConnection, print answers + total time.
 
     python -m ppl.llm.serving_tpu_torch.tools.offline_inference \\
+        --model-dir <HF checkpoint dir> [--device cpu]
+
+serves a checkpoint (config.json, *.safetensors and the tokenizer found
+beside them); random weights at a params.json's widths:
+
+    python -m ppl.llm.serving_tpu_torch.tools.offline_inference \\
         --model-format random --model-param-path params.json \\
         --tokenizer-type dummy [--device cpu]
 """
@@ -36,8 +42,6 @@ def main():
     parser.add_argument("--prompt", action="append", default=None,
                         help="prompt (repeatable); defaults to 4 canned")
     parser.add_argument("--generation-len", type=int, default=64)
-    parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the random weights and sampling")
     args = parser.parse_args()
     setup_logging()
 
@@ -46,7 +50,7 @@ def main():
                                  args.tokenizer_type,
                                  args.tokenizer_config_path or None)
     engine, kv_max, max_running_batch = create_engine(
-        model_cfg, resource_cfg, gen_cfg, rng_seed=args.seed)
+        model_cfg, resource_cfg, gen_cfg)
     if max_running_batch < gen_cfg.max_running_batch:
         print(f"[WARN] bucket grid clamped: max_running_batch "
               f"{gen_cfg.max_running_batch} -> {max_running_batch} (largest "

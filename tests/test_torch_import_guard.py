@@ -1,8 +1,9 @@
-"""The port imports neither JAX nor anything of the JAX package, and
-importing it builds nothing. Checked in a subprocess, because this test
-session's conftest imports jax. The walk covers the serving frontend
-(``serving.*``: gRPC server, proto, metrics, dp router) and the serving
-tools."""
+"""The port imports neither JAX nor anything of the JAX package, nor
+``safetensors`` or ``transformers``, and importing it builds nothing.
+Checked in a subprocess, because this test session's conftest imports
+jax. The walk covers the serving frontend (``serving.*``: gRPC server,
+proto, metrics, dp router), the serving tools, the checkpoint loader,
+the sentencepiece tokenizer and the eval tools."""
 
 import os
 import subprocess
@@ -30,6 +31,14 @@ serving = {"serving", "serving.grpc_server", "serving.metrics",
            "tools.gen_samples", "tools.benchmark_prefix_cache"}
 missing = {m for m in serving if port.__name__ + "." + m not in names}
 assert not missing, missing
+checkpoints = {"models.loader", "tokenizer.sp_model", "tokenizer.sp_tokenizer",
+               "tools.eval_ppl", "tools.eval_accuracy_delta"}
+missing = {m for m in checkpoints if port.__name__ + "." + m not in names}
+assert not missing, missing
+# the port reads safetensors and trains its probe without these packages
+others = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("safetensors", "transformers"))
+assert not others, others
 assert "triton" not in sys.modules
 from ppl.llm.serving_tpu_torch.ops.kernels import _build
 print("built:", sorted(_build._libs))

@@ -40,8 +40,8 @@ def run_cli(args, gen_len=6):
     """The offline CLI on the CPU over two prompts; its output lines."""
     cmd = [sys.executable, "-m",
            "ppl.llm.serving_tpu_torch.tools.offline_inference",
-           "--device", "cpu", "--model-param-path", TINY,
-           "--tokenizer-type", "dummy", "--dtype", "float32",
+           "--device", "cpu", "--model-format", "random",
+           "--model-param-path", TINY, "--tokenizer-type", "dummy", "--dtype", "float32",
            "--kv-cache-max-tokens", "2048", "--generation-len", str(gen_len),
            "--max-total-tokens-per-request", "256",
            "--prompt", "hello", "--prompt", "world", *args]
@@ -70,7 +70,8 @@ def test_block_options_serve_through_cli(args):
 
 def tiny_cfgs(**resource):
     mc = ModelConfig.from_params_json(TINY)
-    rc = ResourceConfig(kv_cache_max_tokens=1024, **resource)
+    rc = ResourceConfig(model_format="random", kv_cache_max_tokens=1024,
+                        **resource)
     return mc, rc, GeneratorConfig(max_running_batch=4)
 
 
@@ -93,7 +94,8 @@ def test_cpu_engine_builds():
 
 def test_cpu_engine_builds_w4a8_int8_kv():
     mc = ModelConfig.from_params_json(TINY_INT8KV)
-    rc = ResourceConfig(device="cpu", kv_cache_max_tokens=1024,
+    rc = ResourceConfig(device="cpu", model_format="random",
+                        kv_cache_max_tokens=1024,
                         quant_method="online_w4a8", quantize_lm_head=True)
     engine, _, _ = create_engine(mc, rc, GeneratorConfig(max_running_batch=4))
     assert engine.kv_cache.dtype == torch.int8
@@ -132,13 +134,23 @@ def test_kv_pool_sizing_matches_jax(dtype, kv8):
 
 @pytest.mark.parametrize("field,value,what", [
     ("tensor_parallel_size", 2, "tensor parallelism"),
-    ("model_format", "hf", "model_format"),
 ])
 def test_resource_options_not_ported(field, value, what):
     rc = ResourceConfig(device="cpu", **{field: value})
     with pytest.raises(ConfigError, match="not yet ported") as e:
         rc.validate()
     assert what in str(e.value)
+
+
+def test_model_format_hf_accepted():
+    """``hf`` is the default, as in the JAX package, and validates;
+    an unknown format does not."""
+    from ppl.llm.serving_tpu.config import ResourceConfig as JResourceConfig
+    assert ResourceConfig().model_format == JResourceConfig().model_format
+    for fmt in ("hf", "random"):
+        ResourceConfig(device="cpu", model_format=fmt).validate()
+    with pytest.raises(ConfigError, match="unknown model_format"):
+        ResourceConfig(device="cpu", model_format="onnx").validate()
 
 
 def test_block_defaults_follow_jax():
@@ -208,7 +220,13 @@ def test_family_fixture_serves_through_cli(params, family):
 
 
 def test_sentencepiece_tokenizer_not_ported(tmp_path):
+    """No longer refused: a ``tokenizer.model`` resolves to the port's
+    sentencepiece tokenizer, by path and by type."""
+    from test_sp_tokenizer import VOCAB, build_model_bytes
+    from ppl.llm.serving_tpu_torch.tokenizer.sp_tokenizer import SPTokenizer
     path = tmp_path / "tokenizer.model"
-    path.write_bytes(b"")
-    with pytest.raises(ConfigError, match="not yet ported"):
-        create_tokenizer("llama", str(path))
+    path.write_bytes(build_model_bytes(VOCAB))
+    for tok in (create_tokenizer("llama", str(path)),
+                create_tokenizer("llama", str(path), "sentencepiece")):
+        assert isinstance(tok._backend, SPTokenizer)
+        assert tok.encode("hello world")[0] == tok.bos_id == 1
