@@ -25,7 +25,9 @@ tokenizer.model, both drawn here, loads it with online_i8i8 over int8 KV,
 serves it and scores it with eval_ppl (K2, K3 at the NLL row's shape);
 the accuracy harness (eval_accuracy_delta) trains its probe and scores
 every quant config on the card. The KV-write microbench drives K5 through
-its own entry point.
+its own entry point. Then the measuring tools run as a user runs them:
+validate_kernels, the headline bench (TinyLlama b64, LLaMA-2-7B b48),
+trace_summary, the microbenches and bench_cold_start.
 
 1. the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel),
@@ -88,7 +90,18 @@ its own entry point.
    within the stated tolerance of the cpu's on the same weights);
 6. the KV-write microbench at the 7B geometry: forms a-h timed, b-d and
    f-h held to (a)'s cache bytes, K5's launches counted over the run;
-7. the ``kernels`` JSON line, then the device JSON line last.
+7. the measuring tools, each run as a user runs it (``python -m
+   ppl.llm.serving_tpu_torch.tools.<tool>``), any failure failing the
+   phase (:func:`tools_phase`): validate_kernels (all 22 cases ok, K5's
+   page read included); the headline bench at TinyLlama i8i8 b64, traced,
+   and at LLaMA-2-7B i8i8 b48 (one JSON line each, with a throughput, no
+   error or partial wave, K1-K3 launched; their launches join the
+   kernels line's ``launches_by_path``); trace_summary --group and
+   --timeline over that trace; the K3/K4 microbench at 7B widths and
+   T=32; the KV-append microbench at TinyLlama geometry;
+   bench_cold_start at TinyLlama widths, 2 of its 22 layers (nvcc runs
+   on the cold start only);
+8. the ``kernels`` JSON line, then the device JSON line last.
 
 ``python3 chip_smoke.py --data-parallel N`` (a machine with N cards)
 builds the kernels and serves TinyLlama through N replicas behind one
@@ -241,21 +254,6 @@ def bound(bytes_moved, ops, peak_ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-
-
-def kernel_name(mangled):
-    """A kernel's name and mangled template arguments from its mangled
-    name (``paged_decode_tc_kernelIaLi128E``: signed char, 128)."""
-    pos = 3 if mangled.startswith("_ZN") else 2     # nested name or not
-    while True:
-        m = re.match(r"\d+", mangled[pos:])
-        if m is None:
-            return mangled
-        pos += m.end()
-        name = mangled[pos:pos + int(m.group())]
-        pos += len(name)
-        if name.endswith("kernel"):
-            return name + mangled[pos:].split("EEv")[0]
 
 
 def tensor_core_check():
@@ -1439,6 +1437,104 @@ def microbench(torch, kernels, name_limit):
     check(counts["page_read"] > 0, "microbench: K5 was never launched")
     torch.cuda.empty_cache()
     return dict(out, path="microbench", launches=counts)
+
+
+# ------------------------------------------------------------ the tools
+
+TOOLS = "ppl.llm.serving_tpu_torch.tools."
+# the bench's gate: these kernels launched over its measured waves
+BENCH_LAUNCHED = ("paged_decode_attention", "paged_prefill_attention",
+                  "i8i8_matmul")
+COLD_START_LAYERS = 2
+# (path label, BENCH_CONFIG): TinyLlama b64 (traced) and the north star
+BENCHES = (("bench tinyllama i8i8 b64", "i8i8"),
+           ("bench llama2-7b i8i8 b48", "i8i8_7b"))
+
+
+def tool(label, args, timeout, env=None):
+    """Run one tool as a user does (``python -m``) from the checkout's
+    root; its output is logged line by line and returned. A non-zero exit
+    fails the phase."""
+    import os
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", TOOLS + args[0], *args[1:]],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, **(env or {})))
+    for line in proc.stdout.splitlines():
+        log(f"[{label}] {line}")
+    if proc.returncode:
+        for line in proc.stderr.splitlines()[-40:]:
+            log(f"[{label} stderr] {line}")
+    log(f"[{label}] exit {proc.returncode} in {time.perf_counter() - t0:.1f} "
+        "s")
+    check(proc.returncode == 0, f"{label}: exit {proc.returncode}")
+    return proc.stdout
+
+
+def bench_line(stdout, label):
+    """The bench's one JSON line, gated: a throughput, no error or partial
+    wave, K1-K3 launched."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"{label}: {len(lines)} JSON lines, not one")
+    rec = json.loads(lines[0])
+    check(rec.get("value", 0) > 0, f"{label}: no throughput: {rec}")
+    bad = sorted(k for k in rec if k == "error" or k.startswith("partial"))
+    check(not bad, f"{label}: {bad} in {rec}")
+    for name in BENCH_LAUNCHED:
+        check(rec["launches"][name] > 0, f"{label}: {name} never launched")
+    check(rec["backend"] == "cuda" and rec["vs_baseline"] > 0,
+          f"{label}: not a card run: {rec}")
+    return rec
+
+
+def tools_phase(name_limit, tmp):
+    """Phase 7: the measuring tools through their entry points.
+    validate_kernels (every case ok); the headline bench at TinyLlama i8i8
+    b64 with a trace of the generator's steps 3-6, and at LLaMA-2-7B i8i8
+    b48, each gated by :func:`bench_line`; trace_summary --group and
+    --timeline over the TinyLlama trace; the K3/K4 microbench at 7B widths
+    and T=32; the KV-append microbench; bench_cold_start at TinyLlama
+    widths (2 layers). Returns
+    the benches' records, whose launches join the kernels line's
+    ``launches_by_path``."""
+    import os
+    out = {}
+    ok = [ln for ln in tool("tools validate_kernels", ["validate_kernels"],
+                            900).splitlines() if ln.startswith("  ok ")]
+    check(len(ok) == 22, f"validate_kernels: {len(ok)} cases ok, not 22")
+    trace = os.path.join(tmp, "bench_trace")
+    for label, config in BENCHES:
+        env = {"BENCH_CONFIG": config}
+        if config == "i8i8":
+            env["BENCH_TRACE_DIR"] = trace
+        rec = bench_line(tool(label, ["bench"], 900, env), label)
+        log(f"[{label}] {rec['value']} generated tok/s, vs_baseline "
+            f"{rec['vs_baseline']} of {rec['roofline_tokens_per_sec']}, p50 "
+            f"TTFT {rec['p50_ttft_ms']} ms, on {name_limit}")
+        out[label] = dict(rec, path=label)
+    tool("tools trace_summary", ["trace_summary", trace, "--group",
+                                 "--timeline"], 300)
+    for method in ("i8i8", "w4a8"):
+        tool(f"tools microbench {method} T=32",
+             ["microbench_quant_matmul", "--method", method, "--t", "32"],
+             300)
+    tool("tools microbench_scatter", ["microbench_scatter"], 300)
+    params = os.path.join(tmp, "tinyllama_params.json")
+    # TinyLlama widths at 2 of its 22 layers: each start validates the
+    # server's default grid, whose captures scale with the depth
+    write_params_json(dict(TINY, num_layers=COLD_START_LAYERS), params)
+    cold = json.loads(tool("tools bench_cold_start", [
+        "bench_cold_start", "--params", params, "--extra",
+        "--quant-method online_i8i8", "--timeout", "600"],
+        1300).splitlines()[-1])
+    check(set(cold["cold"]["nvcc_s"]) == {"paged_attention", "quant_matmul",
+                                          "cache_read"},
+          f"bench_cold_start: cold nvcc runs {cold['cold']['nvcc_s']}")
+    check(not cold["warm"]["nvcc_s"], "bench_cold_start: nvcc ran on the "
+          f"warm start: {cold['warm']['nvcc_s']}")
+    out["bench_cold_start"] = cold
+    return out
 
 
 # --------------------------------------------------------------- end to end
@@ -2749,6 +2845,7 @@ def main():
                                                      common,
                                                      eval_accuracy_delta,
                                                      eval_ppl, llm_server)
+        from ppl.llm.serving_tpu_torch.tools.trace_summary import demangle
     except ImportError as e:
         log(f"FAIL: run chip_smoke.py from the root of a checkout ({e})")
         return 1
@@ -2786,7 +2883,7 @@ def main():
             fn = "?"
             for line in _build.ptxas_report(src).splitlines():
                 if "Compiling entry" in line:
-                    fn = kernel_name(line.split("'")[1])
+                    fn = demangle(line.split("'")[1])
                 elif "registers" in line or "spill" in line:
                     log(f"[build] {src} {fn}: {line.strip()}")
         tensor_core_check()
@@ -2944,7 +3041,15 @@ def main():
         t0 = time.perf_counter()
         e2e["microbench"] = microbench(torch, kernels, name_limit)
         log(f"[phase 6 microbench] {time.perf_counter() - t0:.1f} s")
-    except PhaseError as e:
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            tools_out = tools_phase(name_limit, tmp)
+        e2e.update((k, v) for k, v in tools_out.items() if k in
+                   dict(BENCHES))
+        log(f"[phase 7 tools] {time.perf_counter() - t0:.1f} s")
+    except (PhaseError, subprocess.TimeoutExpired) as e:
         log(f"FAIL: {e}")
         return 1
 

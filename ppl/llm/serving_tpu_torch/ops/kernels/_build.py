@@ -6,26 +6,34 @@ Nothing builds when a module is imported: a wrapper's first launch
 builds its library (``load``), and :func:`build_all` builds every source
 at once, one ``nvcc`` process per source, all started together.
 
-Libraries land in ``build/kernels/`` inside the package directory (listed
-in ``.gitignore``), named by a hash of the source text, of every shared
-header (``csrc/*.cuh``) and of the compiler flags, so an edited source or
-header never loads a stale library. A build writes to a temporary name
-and renames it into place, and the compiler's ``-Xptxas -v`` report
-(registers, shared memory, spills) is kept beside the library as
-``<name>.ptxas.txt``. :func:`sass_counts` counts chosen instructions
-(the tensor cores' ``IMMA``, ``HMMA``) per kernel of a built library;
-:func:`sm_count` reads the device's SM count for the launch plans.
+Libraries land in ``$PPL_COMPILE_CACHE/kernels`` when that variable is
+set and not empty (as the JAX package's compile cache reads it), else in
+``build/kernels/`` inside the package directory (listed in
+``.gitignore``); :func:`build_dir` says which. They are named by a hash
+of the source text, of every shared header (``csrc/*.cuh``) and of the
+compiler flags, so an edited source or header never loads a stale
+library. A build writes to a temporary name and renames it into place,
+and the compiler's ``-Xptxas -v`` report (registers, shared memory,
+spills) is kept beside the library as ``<name>.ptxas.txt``.
+:func:`sass_counts` counts chosen instructions (the tensor cores'
+``IMMA``, ``HMMA``) per kernel of a built library; :func:`sm_count`
+reads the device's SM count for the launch plans.
+Every ``nvcc`` run is logged with its seconds (``nvcc built <library> in
+<s> s``) and kept in :data:`build_seconds`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import re
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -40,6 +48,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# source name -> seconds its last nvcc run took, in this process
+build_seconds: Dict[str, float] = {}
+logger = logging.getLogger("ppl.llm.serving_tpu_torch.kernels")
+
+
+def build_dir() -> Path:
+    """Where the libraries go: ``$PPL_COMPILE_CACHE/kernels`` when the
+    variable is set and not empty, else :data:`BUILD_DIR`."""
+    root = os.environ.get("PPL_COMPILE_CACHE", "")
+    return Path(root) / "kernels" if root else BUILD_DIR
 
 
 def find_nvcc() -> str:
@@ -58,7 +76,7 @@ def library_path(name: str) -> Path:
     for header in sorted(SRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, nvcc: str):
@@ -67,31 +85,38 @@ def _start(name: str, nvcc: str):
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return name, proc, tmp, out, time.perf_counter()
 
 
-def _finish(proc, tmp: Path, out: Path) -> None:
+def _finish(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
     log, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
     out.with_name(out.name.replace(".so", ".ptxas.txt")).write_text(log)
     os.replace(tmp, out)
+    build_seconds[name] = seconds
+    logger.info("nvcc built %s in %.1f s", out.name, seconds)
 
 
 def build(names: Iterable[str]) -> List[Path]:
     """Build the libraries of ``names`` that are not built yet, all
     compilers running at once; returns their paths."""
     names = list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     pending = [n for n in names if not library_path(n).exists()]
     if pending:
         nvcc = find_nvcc()
         jobs = [_start(n, nvcc) for n in pending]
+        # one waiting thread a compiler, so that each one's seconds end
+        # when it does
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futures = [pool.submit(_finish, *job) for job in jobs]
         errors = []
-        for job in jobs:
+        for fut in futures:
             try:
-                _finish(*job)
+                fut.result()
             except RuntimeError as e:
                 errors.append(str(e))
         if errors:

@@ -13,7 +13,9 @@ tokens the decode tile, over pieces of K that :func:`plan_split_k`
 tile. K3's pieces add int32 partial sums in a zeroed workspace; K4's
 write f32 partials that the last piece of a column tile adds in piece
 order, its arrival counters kept per device and left at zero by every
-launch. Either way every run gives the same bits.
+launch. Either way every run gives the same bits. ``splits=`` asks the
+decode tile for another piece count than the planner's (the microbench
+and the card tests sweep it; the model never passes it).
 
 Same two weight contracts as the JAX package's Pallas kernels: plain
 x [T, D] x w [D, ...out] -> [T, ...out] (w4a8: packed [D/2, ...out],
@@ -94,38 +96,51 @@ def _quantize_rows(name: str, lib, x: torch.Tensor, stream, ld=None):
     return xq, xs
 
 
-def plan_split_k(t: int, d: int, n: int, c: int, num_sms: int):
+def _pieces(t: int, stages: int, tiles: int, num_sms: int, stage: int,
+            splits=None):
+    """``(splits, kchunk)`` over ``stages`` stages of ``stage`` rows: the
+    planner's rule (see :func:`plan_split_k`), or ``ceil(stages /
+    splits)`` stages a piece for an explicit ``splits``, none empty (so
+    fewer pieces than asked where that leaves one empty)."""
+    if splits is not None:
+        if splits < 1 or (t > DECODE_MAX_T and splits != 1):
+            raise ValueError(f"splits {splits}: the decode tile takes 1 or "
+                             f"more, the prefill tile (T > {DECODE_MAX_T}) "
+                             "runs whole")
+        per_piece = -(-stages // splits)
+    elif t > DECODE_MAX_T:
+        per_piece = stages
+    else:
+        want = -(-CTAS_PER_SM * num_sms // tiles)
+        per_piece = max(1, stages // want)
+    return -(-stages // per_piece), per_piece * stage
+
+
+def plan_split_k(t: int, d: int, n: int, c: int, num_sms: int,
+                 splits=None):
     """K3's pieces of K: ``(splits, kchunk)``. Above ``DECODE_MAX_T``
     tokens the prefill tile runs whole, ``(1, D rounded up to K_STAGE)``.
     At decode sizes piece ``i`` covers rows ``[i*kchunk, min(D, (i+1) *
     kchunk))``, ``kchunk`` a multiple of ``K_STAGE``, none empty, and the
     ``c * ceil(n / TILE_N) * splits`` CTAs reach ``CTAS_PER_SM * num_sms``
-    unless K has fewer stages than that needs."""
-    stages = -(-d // K_STAGE)
-    if t > DECODE_MAX_T:
-        return 1, stages * K_STAGE
-    tiles = c * -(-n // TILE_N)
-    want = -(-CTAS_PER_SM * num_sms // tiles)
-    per_piece = max(1, stages // want)
-    return -(-stages // per_piece), per_piece * K_STAGE
+    unless K has fewer stages than that needs. An explicit ``splits``
+    overrides that choice (:func:`_pieces`)."""
+    return _pieces(t, -(-d // K_STAGE), c * -(-n // TILE_N), num_sms,
+                   K_STAGE, splits)
 
 
 def plan_split_k_w4(t: int, d2: int, n: int, c: int, num_sms: int,
-                    group: int):
+                    group: int, splits=None):
     """K4's pieces of the ``d2`` packed rows: ``(splits, kchunk)`` in
     packed rows, by :func:`plan_split_k`'s rule over stages of
     ``max(group, W4_STAGE)`` packed rows (whole groups): above
     ``DECODE_MAX_T`` tokens one piece; at decode sizes none empty, and
     ``c * ceil(n / TILE_N) * splits`` CTAs reach ``CTAS_PER_SM *
-    num_sms`` unless the rows have fewer stages than that needs."""
+    num_sms`` unless the rows have fewer stages than that needs. An
+    explicit ``splits`` overrides that choice (:func:`_pieces`)."""
     ksp = max(group, W4_STAGE)
-    stages = -(-d2 // ksp)
-    if t > DECODE_MAX_T:
-        return 1, stages * ksp
-    tiles = c * -(-n // TILE_N)
-    want = -(-CTAS_PER_SM * num_sms // tiles)
-    per_piece = max(1, stages // want)
-    return -(-stages // per_piece), per_piece * ksp
+    return _pieces(t, -(-d2 // ksp), c * -(-n // TILE_N), num_sms, ksp,
+                   splits)
 
 
 _COUNTERS = {}      # device -> K4's int32 arrival counters, all zero
@@ -152,7 +167,13 @@ def _w4_counters(device, needed: int) -> torch.Tensor:
 
 
 def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                splits=None) -> torch.Tensor:
+    """K3: per-token int8 activations x int8 weights, int32 sums, the f32
+    epilogue, ``out_dtype`` out; ``splits``: the decode tile's pieces of K
+    (:func:`plan_split_k`'s choice when None)."""
+    if splits is not None and splits < 1:
+        raise ValueError(f"i8i8_matmul: splits {splits} < 1")
     if x.device.type == "cpu":
         return quant_ops.i8i8_matmul(x, w_q, w_scale).to(out_dtype)
     _check_x("i8i8_matmul", x, out_dtype)
@@ -177,7 +198,8 @@ def i8i8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if t:
         lib = _lib()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        splits, kchunk = plan_split_k(t, d, n, c, _build.sm_count(x.device))
+        splits, kchunk = plan_split_k(t, d, n, c, _build.sm_count(x.device),
+                                      splits)
         ldx = -(-d // ROW_ALIGN) * ROW_ALIGN
         xq, xs = _quantize_rows("i8i8_matmul", lib, x, stream, ldx)
         # split-K: int32 sums [C, T, N] and one counter per column tile
@@ -203,9 +225,13 @@ i8i8_matmul.launches = 0
 
 
 def w4a8_matmul(x: torch.Tensor, w_p: torch.Tensor, w_scale: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                splits=None) -> torch.Tensor:
     """K4: per-token int8 activations x group-int4 weights (nibble pairs
-    i, i + D/2), f32 accumulation, ``out_dtype`` out."""
+    i, i + D/2), f32 accumulation, ``out_dtype`` out; ``splits``: the
+    decode tile's pieces (:func:`plan_split_k_w4`'s choice when None)."""
+    if splits is not None and splits < 1:
+        raise ValueError(f"w4a8_matmul: splits {splits} < 1")
     if x.device.type == "cpu":
         return quant_ops.w4a8_matmul(x, w_p, w_scale).to(out_dtype)
     _check_x("w4a8_matmul", x, out_dtype)
@@ -240,7 +266,8 @@ def w4a8_matmul(x: torch.Tensor, w_p: torch.Tensor, w_scale: torch.Tensor,
         lib = _lib()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         splits, kchunk = plan_split_k_w4(t, d2, n, c,
-                                         _build.sm_count(x.device), group)
+                                         _build.sm_count(x.device), group,
+                                         splits)
         # D % 32 == 0 (D/2 is a multiple of the group), so rows of D
         # bytes keep every 16-byte chunk of both column ranges whole
         xq, xs = _quantize_rows("w4a8_matmul", lib, x, stream)

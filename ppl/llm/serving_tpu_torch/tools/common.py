@@ -1,12 +1,15 @@
 """Shared CLI wiring for the port's tools (the flag surface of the JAX
 package's ``tools/common.py`` minus its JAX and TPU knobs, plus
-``--device``)."""
+``--device``), and what the measuring tools read of the card: its name
+and power limit (``nvidia-smi``) and its HBM bandwidth by that name."""
 
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+import subprocess
+from typing import Tuple
 
 from ppl.llm.serving_tpu_torch.config import (GeneratorConfig, ModelConfig,
                                               ResourceConfig)
@@ -174,3 +177,29 @@ def setup_logging(verbose: bool = True) -> None:
     logging.basicConfig(
         level=logging.INFO if verbose else logging.WARNING,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+
+# HBM bandwidth by the card's name as nvidia-smi and
+# torch.cuda.get_device_name give it (NVIDIA's data sheet: H100 SXM)
+HBM_BYTES_PER_S = {"NVIDIA H100 80GB HBM3": 3.35e12}
+
+
+def hbm_bytes_per_s(card: str) -> float:
+    """The HBM bandwidth of ``card``; raises for a card not on record
+    (no guessed default)."""
+    if card not in HBM_BYTES_PER_S:
+        raise ValueError(f"no HBM bandwidth on record for the card {card!r} "
+                         f"(known: {sorted(HBM_BYTES_PER_S)})")
+    return HBM_BYTES_PER_S[card]
+
+
+def card_name_and_limit(index: int = 0) -> Tuple[str, str]:
+    """``(name, power limit)`` of GPU ``index`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (``"NVIDIA H100 80GB HBM3", "700.00 W"``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    name, _, limit = out.stdout.strip().splitlines()[0].rpartition(",")
+    return name.strip(), limit.strip()

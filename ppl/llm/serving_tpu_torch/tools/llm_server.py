@@ -26,7 +26,9 @@ import torch
 from ppl.llm.serving_tpu_torch import __version__
 from ppl.llm.serving_tpu_torch.config import ConfigError, not_ported
 from ppl.llm.serving_tpu_torch.generator import LLMGenerator
-from ppl.llm.serving_tpu_torch.resources import create_engine
+from ppl.llm.serving_tpu_torch.ops.kernels import _build
+from ppl.llm.serving_tpu_torch.resources import (create_engine,
+                                                 require_device)
 from ppl.llm.serving_tpu_torch.serving.grpc_server import (AsyncGRPCServer,
                                                            GRPCConnection,
                                                            GRPCServer)
@@ -189,6 +191,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     # crash backtraces, also on SIGTERM
     faulthandler.enable()
     faulthandler.register(signal.SIGTERM, chain=True)
+    if require_device(build_parser().parse_args(argv).device).type == "cuda":
+        # every CUDA source at once (one nvcc each, each logged with its
+        # seconds), where the first launches would build them one by one
+        _build.build_all()
     server, _, engine = build_server(argv)
     print(f"[INFO] listening on port {server.port} ({engine.device})",
           flush=True)

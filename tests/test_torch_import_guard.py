@@ -3,7 +3,9 @@
 Checked in a subprocess, because this test session's conftest imports
 jax. The walk covers the serving frontend (``serving.*``: gRPC server,
 proto, metrics, dp router), the serving tools, the checkpoint loader,
-the sentencepiece tokenizer and the eval tools."""
+the sentencepiece tokenizer, the eval tools and the measuring tools
+(bench, trace_summary, validate_kernels, the microbenches, bench_sweep,
+bench_cold_start); of these only bench_cold_start may load grpc."""
 
 import os
 import subprocess
@@ -28,12 +30,15 @@ serving = {"serving", "serving.grpc_server", "serving.metrics",
            "serving.dp_router", "serving.proto", "serving.proto.llm_pb2",
            "tools.llm_server", "tools.client_sample",
            "tools.client_qps_measure", "tools.client_pressure",
-           "tools.gen_samples", "tools.benchmark_prefix_cache"}
+           "tools.gen_samples", "tools.benchmark_prefix_cache",
+           "tools.bench_cold_start"}
 missing = {m for m in serving if port.__name__ + "." + m not in names}
 assert not missing, missing
 checkpoints = {"models.loader", "tokenizer.sp_model", "tokenizer.sp_tokenizer",
                "tools.eval_ppl", "tools.eval_accuracy_delta"}
 missing = {m for m in checkpoints if port.__name__ + "." + m not in names}
+assert not missing, missing
+missing = {m for m in MEASURING if port.__name__ + "." + m not in names}
 assert not missing, missing
 # the port reads safetensors and trains its probe without these packages
 others = sorted(k for k in sys.modules
@@ -46,8 +51,29 @@ assert not _build._libs
 """
 
 
+# the measuring tools; all but bench_cold_start stay clear of grpc
+MEASURING = ("tools.bench", "tools.trace_summary", "tools.validate_kernels",
+             "tools.microbench_quant_matmul", "tools.microbench_scatter",
+             "tools.bench_sweep", "tools.bench_cold_start")
+
+NO_GRPC = r"""
+import importlib, sys
+names = sys.argv[1:]
+for name in names[:-1]:
+    importlib.import_module("ppl.llm.serving_tpu_torch." + name)
+loaded = sorted(k for k in sys.modules if k.split(".")[0] == "grpc")
+assert not loaded, loaded
+importlib.import_module("ppl.llm.serving_tpu_torch." + names[-1])
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")
+             or k.startswith("ppl.llm.serving_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
 def test_port_imports_no_jax():
-    out = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO,
+    out = subprocess.run([sys.executable, "-c",
+                          f"MEASURING = {MEASURING!r}\n" + GUARD], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
@@ -75,3 +101,15 @@ def test_port_sources_name_no_jax():
                        or w == "ppl.llm.serving_tpu" for w in words):
                     offenders.append(f"{path}: {s}")
     assert len(paths) >= 30 and not offenders, offenders
+
+
+def test_measuring_tools_load_no_grpc_but_bench_cold_start():
+    """The bench, the trace summary, validate_kernels, the microbenches and
+    the sweep import without grpc (they run where no server does);
+    bench_cold_start, a gRPC client of the server, is allowed it."""
+    assert MEASURING[-1] == "tools.bench_cold_start"
+    out = subprocess.run([sys.executable, "-c", NO_GRPC, *MEASURING],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        out.stdout + out.stderr

@@ -756,3 +756,46 @@ def test_decode_tc_kernel_checks_its_group(cuda):
     with pytest.raises(ValueError, match="splits"):
         pk.paged_decode_attention(q[:, :16], cache, None, pt, ctx, spec,
                                   layer=0, fresh_k=f, fresh_v=f, splits=0)
+
+
+def _split_counts(planned):
+    """The microbench's sweep: the planner's piece count, 1, twice it."""
+    return sorted({planned, 1, 2 * planned})
+
+
+@pytest.mark.parametrize("t", [1, 8, 16])
+@pytest.mark.parametrize("name,d,n,fused", K3_13B)
+def test_i8i8_split_override_agrees_bit_for_bit(cuda, name, d, n, fused, t):
+    """K3 at 1, the planner's and twice the planner's pieces of K (the
+    ``splits=`` override the microbench sweeps): exact int32 sums, so
+    every count gives the plain version's bits."""
+    wq, ws, g = _i8i8_operands(cuda, d, n, fused, 42)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    planned, _ = qk.plan_split_k(t, d, n, 2 if fused else 1, sms)
+    x = torch.randn((t, d), generator=g, device=cuda)
+    ref = quant_ops.i8i8_matmul(x, wq, ws)
+    for splits in _split_counts(planned):
+        out = qk.i8i8_matmul(x, wq, ws, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (splits, float((out - ref).abs().max()))
+
+
+@pytest.mark.parametrize("t", [1, 8, 16])
+@pytest.mark.parametrize("name,d,n,fused", K4_7B)
+def test_w4a8_split_override_agrees(cuda, name, d, n, fused, t):
+    """K4 at 1, the planner's and twice the planner's pieces: each within
+    1e-5 of max|ref| of the plain version, and the counts within 3.8e-6
+    of each other in f32 (only the order of the pieces' f32 partial sums
+    differs)."""
+    wp, ws, g = _w4_operands(cuda, d, n, fused, 43)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    planned, _ = qk.plan_split_k_w4(t, d // 2, n, 2 if fused else 1, sms, 64)
+    x = torch.randn((t, d), generator=g, device=cuda)
+    ref = quant_ops.w4a8_matmul(x, wp, ws)
+    outs = [qk.w4a8_matmul(x, wp, ws, splits=s)
+            for s in _split_counts(planned)]
+    torch.cuda.synchronize()
+    for out in outs:
+        _w4_check(out, ref, bf16=False)
+        assert float((out - outs[0]).abs().max()) <= 3.8e-6
+    assert int(qk._COUNTERS[x.device].abs().sum()) == 0
