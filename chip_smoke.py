@@ -104,7 +104,12 @@ trace_summary, the microbenches and bench_cold_start.
    T=32; the KV-append microbench at TinyLlama geometry;
    bench_cold_start at TinyLlama widths, 2 of its 22 layers (nvcc runs
    on the cold start only);
-8. the ``kernels`` JSON line, then the device JSON line last.
+8. the canonical qps benchmark, ``python -m
+   ppl.llm.serving_tpu_torch.tools.bench_canonical --model 7b`` as a
+   user runs it (:func:`canonical_phase`: LLaMA-2-7B i8i8 + int8 KV + an
+   int8 lm_head, 256 ShareGPT-mix requests at rate inf, a warm pass and
+   the measured pass; its JSON line's numbers printed beside the card);
+9. the ``kernels`` JSON line, then the device JSON line last.
 
 ``python3 chip_smoke.py --data-parallel N`` (a machine with N cards)
 builds the kernels and serves TinyLlama through N replicas behind one
@@ -134,7 +139,14 @@ of rank 0 from a trace; with ``--one-card-share``, (5) one card serving
 80/N layers at the whole width (one rank's share of the weights' bytes)
 with the same traffic; then the kernels line and the device line with
 ``count`` N. It too is a separate run, made by hand.
-made by hand.
+
+``python3 chip_smoke.py --data-parallel 2 --tensor-parallel 2`` (four
+cards) serves LLaMA-2-70B i8i8 int8-KV at full depth through
+``llm_server --tensor-parallel-size 2 --data-parallel-size 2``: two
+replicas of two-card groups behind one frontend
+(:func:`dp_tp_server_path`); beside it, the four cards as one untraced
+tp=4 server on the same requests; then the device line with ``count``
+4. A separate run, made by hand.
 """
 
 import contextlib
@@ -187,7 +199,11 @@ BF16_TOL = 3e-2               # flat bf16 limit: holds the bf16 load/store path
 # either side (see attn_check)
 ALIBI_BF16_TOL = f"{BF16_TOL}+2^-7|ref|"
 W4_REL = 1e-5                 # K4 vs plain, of max|ref| (test_quant_w4.py)
-PERTURB_SEEDS = 3             # draws of the step check's i8i8 sensitivity
+PERTURB_SEEDS = 3             # draws of a sensitivity measure on the card
+# draws of a sensitivity measure on the cpu (phase 4's step, prefix-hit,
+# chunk and NLL checks; the accuracy harness's cpu scores): one, so that
+# the no-argument run stays inside the chip call's time limit
+CPU_PERTURB_SEEDS = 1
 CARD = ["?"]                  # the card's name and power limit, once read
 
 
@@ -1069,7 +1085,7 @@ def step_cross_check(torch, port, quant_method, widths):
     float weights 1e-4 of the largest logit (f32 summation order over two
     layers); for quantized weights three times the largest move that a
     1e-6 relative perturbation of the attention outputs causes on the cpu
-    over PERTURB_SEEDS draws, measured here: any difference upstream of an
+    over CPU_PERTURB_SEEDS draws, measured here: any difference upstream of an
     int8 activation (or int8 KV) quantization flips some roundings, and
     each flip moves a logit by about one quantization step. The written
     cache rows (dequantized under int8 KV) are held the same way."""
@@ -1152,7 +1168,7 @@ def step_cross_check(torch, port, quant_method, widths):
         keep[lo:lo + PS] = False
     quantized = quant_method != "none" or spec.quantized
     sens, cache_sens = [], []
-    for seed in (range(PERTURB_SEEDS) if quantized else ()):
+    for seed in (range(CPU_PERTURB_SEEDS) if quantized else ()):
         c_p, s_p = cache0.clone(), clone(scale0)
         with perturbed_attention(torch, port["pk"], 1e-6,
                                  torch.Generator().manual_seed(seed)):
@@ -1292,7 +1308,7 @@ def prefix_chunk_cross_check(torch, port, widths):
     cold_g, cold_c = after_cold(p_gpu, "cuda"), after_cold(p_cpu, "cpu")
     torch.cuda.synchronize()
     cold_p = [after_cold(p_cpu, "cpu", torch.Generator().manual_seed(sd))
-              for sd in range(PERTURB_SEEDS)]
+              for sd in range(CPU_PERTURB_SEEDS)]
     out = {}
     for name in ("hit", "chunk"):
         c_g, s_g = (t.clone() for t in cold_g)
@@ -1590,16 +1606,36 @@ BENCHES = (("bench tinyllama i8i8 b64", "i8i8"),
            ("bench llama2-7b i8i8 b48", "i8i8_7b"))
 
 
-def tool(label, args, timeout, env=None):
-    """Run one tool as a user does (``python -m``) from the checkout's
-    root; its output is logged line by line and returned. A non-zero exit
-    fails the phase."""
+def run_tree(cmd, timeout, env=None):
+    """Run ``cmd`` from the checkout's root in a process group of its
+    own, its output captured. Past ``timeout`` the whole group (the
+    servers it started too) is killed, then TimeoutExpired raised."""
     import os
+    import signal
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True,
+        env=dict(os.environ, **(env or {})))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def run_tool(args, timeout, env=None):
+    """``python -m`` one tool of the port (:func:`run_tree`)."""
+    return run_tree([sys.executable, "-m", TOOLS + args[0], *args[1:]],
+                    timeout, env)
+
+
+def tool(label, args, timeout, env=None):
+    """Run one tool as a user does (:func:`run_tool`); its output is
+    logged line by line and returned. A non-zero exit fails the phase."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", TOOLS + args[0], *args[1:]],
-                          cwd=os.path.dirname(os.path.abspath(__file__)),
-                          capture_output=True, text=True, timeout=timeout,
-                          env=dict(os.environ, **(env or {})))
+    proc = run_tool(args, timeout, env)
     for line in proc.stdout.splitlines():
         log(f"[{label}] {line}")
     if proc.returncode:
@@ -1674,6 +1710,85 @@ def tools_phase(name_limit, tmp):
           f"warm start: {cold['warm']['nvcc_s']}")
     out["bench_cold_start"] = cold
     return out
+
+
+# phase 8: the canonical qps benchmark's 7B branch (bench_canonical.sh's
+# MODEL=7b): LLaMA-2-7B widths, 32 layers, i8i8 + int8 group-8 KV + int8
+# lm_head, page 128, 256 ShareGPT-mix requests at rate inf, twice
+CANONICAL_LABEL = "canonical 7B i8i8 int8-KV"
+CANONICAL_REQUESTS = 256
+CANONICAL_IDLE = ("w4a8_matmul", "page_read", "paged_decode_attention_tail",
+                  "paged_decode_attention_alibi",
+                  "paged_prefill_attention_alibi")
+
+
+def canonical_phase(name_limit, tmp):
+    """Phase 8: ``python -m ppl.llm.serving_tpu_torch.tools.bench_canonical
+    --model 7b`` as a user runs it (its server a process of its own; the
+    kernels this run built are found, not rebuilt). Gates: exit 0; one
+    JSON line and nothing else on stdout; 256 of 256 requests finished
+    and 0 failed in the warm pass and in the measured pass; tokens out/s
+    above 0; the server's log has its "bucket grid validated before
+    serving" line before it listens; K1-K3 launched while serving and
+    K4, K5, K1's tail and the ALiBi branches not (the server's counts over
+    both passes). No speed gate. Returns the JSON line's record."""
+    import os
+    label = f"phase 8 {CANONICAL_LABEL}"
+    work = os.path.join(tmp, "canonical")
+    t0 = time.perf_counter()
+    proc = run_tool(["bench_canonical", "--model", "7b", "--work-dir", work],
+                    900)
+    for line in proc.stderr.splitlines():
+        if line.startswith(("[bench_canonical]", "[RESULT] finished",
+                            "[RESULT] benchmark time",
+                            "[RESULT] tokens out per sec")):
+            log(f"[{label}] {line}")
+    if proc.returncode:
+        for line in proc.stderr.splitlines()[-40:]:
+            log(f"[{label} stderr] {line}")
+    log(f"[{label}] exit {proc.returncode} in {time.perf_counter() - t0:.1f} "
+        "s")
+    check(proc.returncode == 0, f"{label}: exit {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    check(len(lines) == 1 and lines[0].startswith("{"),
+          f"{label}: stdout is not one JSON line: {lines[:3]}")
+    rec = json.loads(lines[0])
+    n = CANONICAL_REQUESTS
+    check(rec["requests"] == n and rec["finished"] == n
+          and rec["warm_finished"] == n, f"{label}: finished "
+          f"{rec['warm_finished']} (warm) and {rec['finished']} of "
+          f"{rec['requests']}, want {n} of {n}")
+    check(rec["failed"] == 0 and rec["warm_failed"] == 0,
+          f"{label}: {rec['warm_failed']} (warm) and {rec['failed']} failed")
+    check(rec["tokens_out_per_s"] > 0, f"{label}: no throughput: {rec}")
+    check(rec["device"] == "cuda" and rec["card"] != "cpu",
+          f"{label}: not a card run: {rec}")
+    with open(os.path.join(work, "server.log")) as f:
+        server_log = f.read()
+    validated = server_log.find("bucket grid validated before serving")
+    listening = server_log.find("listening on port")
+    check(0 <= validated < listening, f"{label}: the server log has no "
+          "bucket grid validated before it listens")
+    grid = server_log[validated:server_log.index("\n", validated)]
+    launches = rec["launches"]
+    check(launches is not None, f"{label}: the server printed no launches")
+    for name in ATTN + ("i8i8_matmul",):
+        check(launches[name] > 0, f"{label}: {name} never launched")
+    for name in CANONICAL_IDLE:
+        check(launches[name] == 0,
+              f"{label}: {name} launched {launches[name]} times")
+    log(f"[{label}] {grid}")
+    log(f"[{label}] measured pass: {rec['finished']} of {n} finished, "
+        f"{rec['failed']} failed (warm pass {rec['warm_finished']} / "
+        f"{rec['warm_failed']}); tokens out/s {rec['tokens_out_per_s']:.1f}"
+        f" ({rec['tokens_out_per_s_per_chip']:.1f} a card), p50 TTFT "
+        f"{rec['ttft_p50_ms']:.1f} ms, p50 TPOT {rec['tpot_p50_ms']:.2f} ms, "
+        f"time per token {rec['time_per_token_ms']:.3f} ms; startup "
+        f"{rec['startup_s']:.1f} s, warm pass {rec['warm_s']:.1f} s, "
+        f"measured pass {rec['measured_s']:.1f} s; the server's launches "
+        f"over both passes {launches}; on {rec['card']}, "
+        f"{rec['power_limit_w']} W ({name_limit})")
+    return dict(rec, path=CANONICAL_LABEL)
 
 
 # --------------------------------------------------------------- end to end
@@ -1994,49 +2109,56 @@ class Served:
         check(not left, f"threads still alive after shutdown: {left}")
 
 
-def stream_one(port, stub, stats, rid, ids, n):
+def stream_one(port, stub, stats, rid, ids, n, copies=1):
     """One token-in request as its own stream on a blocking channel,
     recorded into client_qps_measure's Stats as its client records them
     (the client's asyncio channel is not used here: grpc.aio in two event
     loops of one process, the server's and a client's, trips over the
-    shared completion queue)."""
+    shared completion queue). ``copies`` > 1: that many copies of it in
+    the stream's one BatchedRequest, client ids ``rid * copies + r``,
+    which a data-parallel router deals to ``copies`` replicas in turn."""
     import grpc
     pb = port["llm_pb2"]
     batched = pb.BatchedRequest()
-    req = batched.req.add()
-    req.id = rid
-    req.tokens.ids.extend(ids)
-    req.stopping_parameters.max_new_tokens = n
-    req.stopping_parameters.ignore_eos_token = True
-    stats.send_ts[rid] = time.perf_counter()
-    stats.in_tokens[rid] = len(ids)
-    stats.out_tokens[rid] = 0
-    stats.token_ids[rid] = []
+    cids = [rid * copies + r for r in range(copies)]
+    for cid in cids:
+        req = batched.req.add()
+        req.id = cid
+        req.tokens.ids.extend(ids)
+        req.stopping_parameters.max_new_tokens = n
+        req.stopping_parameters.ignore_eos_token = True
+        stats.send_ts[cid] = time.perf_counter()
+        stats.in_tokens[cid] = len(ids)
+        stats.out_tokens[cid] = 0
+        stats.token_ids[cid] = []
     try:
         for b in stub(batched, timeout=600):
             now = time.perf_counter()
             for rsp in b.rsp:
+                cid = rsp.id
                 if rsp.status == pb.FAILED:
-                    stats.failed_ids.add(rid)
-                    stats.finish_ts[rid] = now
-                    return
-                stats.first_ts.setdefault(rid, now)
-                stats.out_tokens[rid] += max(1, len(rsp.tokens.ids))
-                stats.token_ids[rid].extend(rsp.tokens.ids)
+                    stats.failed_ids.add(cid)
+                    stats.finish_ts[cid] = now
+                    continue
+                stats.first_ts.setdefault(cid, now)
+                stats.out_tokens[cid] += max(1, len(rsp.tokens.ids))
+                stats.token_ids[cid].extend(rsp.tokens.ids)
                 if rsp.status == pb.FINISHED:
-                    stats.finish_ts[rid] = now
-                    stats.finish_reason[rid] = rsp.detail.finish_reason
+                    stats.finish_ts[cid] = now
+                    stats.finish_reason[cid] = rsp.detail.finish_reason
     except grpc.RpcError:
-        stats.failed_ids.add(rid)
-        stats.finish_ts[rid] = time.perf_counter()
+        for cid in cids:
+            stats.failed_ids.add(cid)
+            stats.finish_ts[cid] = time.perf_counter()
 
 
-def stream_requests(port, target, reqs, concurrency, first=()):
+def stream_requests(port, target, reqs, concurrency, first=(), copies=1):
     """Send ``reqs`` [(rid, token ids, new tokens)] as token-in streams,
     at most ``concurrency`` at a time; ``first`` (the same form) goes out
     before them, and ``reqs`` once every one of ``first`` has its first
-    token. Returns (the Stats of ``reqs``, seconds from their first send
-    to their last finish, the Stats of ``first``)."""
+    token. ``copies``: that many copies of each request in its stream
+    (:func:`stream_one`). Returns (the Stats of ``reqs``, seconds from
+    their first send to their last finish, the Stats of ``first``)."""
     import grpc
     from concurrent.futures import ThreadPoolExecutor
     qps, pb = port["client_qps_measure"], port["llm_pb2"]
@@ -2047,17 +2169,17 @@ def stream_requests(port, target, reqs, concurrency, first=()):
             "/ppl.llm.proto.LLMService/Generation",
             request_serializer=pb.BatchedRequest.SerializeToString,
             response_deserializer=pb.BatchedResponse.FromString)
-        lead = [lead_pool.submit(stream_one, port, stub, lead_stats, *r)
-                for r in first]
+        lead = [lead_pool.submit(stream_one, port, stub, lead_stats, *r,
+                                 copies) for r in first]
         t_end = time.perf_counter() + 600
-        while (len(lead_stats.first_ts) < len(first)
+        while (len(lead_stats.first_ts) < len(first) * copies
                and not any(f.done() for f in lead)
                and time.perf_counter() < t_end):
             time.sleep(0.002)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(concurrency) as workers:
-            for f in [workers.submit(stream_one, port, stub, stats, *r)
-                      for r in reqs]:
+            for f in [workers.submit(stream_one, port, stub, stats, *r,
+                                     copies) for r in reqs]:
                 f.result()
         elapsed = time.perf_counter() - t0
         for f in lead:
@@ -2065,14 +2187,16 @@ def stream_requests(port, target, reqs, concurrency, first=()):
     return stats, elapsed, lead_stats
 
 
-def check_streams(stats, reqs, label):
+def check_streams(stats, reqs, label, copies=1):
     for rid, _, n in reqs:
-        toks = stats.token_ids.get(rid, [])
-        check(rid not in stats.failed_ids, f"{label}: request {rid} failed")
-        check(stats.finish_reason.get(rid) == 0 and len(toks) == n,
-              f"{label}: request {rid} ended with finish reason "
-              f"{stats.finish_reason.get(rid)} after {len(toks)} tokens, "
-              f"want FINISH_REASON_LENGTH after {n}")
+        for cid in range(rid * copies, (rid + 1) * copies):
+            toks = stats.token_ids.get(cid, [])
+            check(cid not in stats.failed_ids,
+                  f"{label}: request {cid} failed")
+            check(stats.finish_reason.get(cid) == 0 and len(toks) == n,
+                  f"{label}: request {cid} ended with finish reason "
+                  f"{stats.finish_reason.get(cid)} after {len(toks)} "
+                  f"tokens, want FINISH_REASON_LENGTH after {n}")
 
 
 def serving_gates(torch, port, served, label, graphs0, counts, plans,
@@ -2784,7 +2908,7 @@ def nll_cross_check(torch, port, widths):
     equal and the per-position NLLs within the step cross-check's
     tolerance: three times the largest move that a 1e-6 relative
     perturbation of the attention outputs causes on the cpu (over
-    PERTURB_SEEDS draws), plus 1e-4 of the largest NLL."""
+    CPU_PERTURB_SEEDS draws), plus 1e-4 of the largest NLL."""
     llama, kv = port["llama"], port["kv"]
     cfg = port["ModelConfig"](**dict(widths, num_layers=2,
                                      dtype="float32"))
@@ -2818,7 +2942,7 @@ def nll_cross_check(torch, port, widths):
     check((m_g == m_c).all() and int(m_c.sum()) == n_valid - 1,
           "nll cross-check: masks differ")
     sens = []
-    for seed in range(PERTURB_SEEDS):
+    for seed in range(CPU_PERTURB_SEEDS):
         with perturbed_attention(torch, port["pk"], 1e-6,
                                  torch.Generator().manual_seed(seed)):
             n_p, _ = run(p_cpu, "cpu")
@@ -2863,7 +2987,7 @@ def accuracy_harness(torch, port, name_limit):
     agrees with the same weights scored through the plain versions on
     the cpu: float32 configs within 1e-4 relative; bf16 and quantized
     configs within three times the largest move that a perturbation of
-    the attention outputs causes on the cpu (over PERTURB_SEEDS draws;
+    the attention outputs causes on the cpu (over CPU_PERTURB_SEEDS draws;
     1e-6 relative in f32, 2^-8 in bf16, about one rounding of each),
     plus 1e-4 relative."""
     ead, kernels = port["eval_accuracy_delta"], port["kernels"]
@@ -2892,7 +3016,7 @@ def accuracy_harness(torch, port, name_limit):
     for name in ATTN[1:] + ("i8i8_matmul", "w4a8_matmul"):
         check(counts[name] > 0, f"accuracy harness: {name} never launched")
     # the cpu scores: each config plain, and the bf16 and quantized ones
-    # under PERTURB_SEEDS perturbations, spread over 4 processes
+    # under CPU_PERTURB_SEEDS perturbations, spread over 4 processes
     jobs = []
     for name, kw in ead.CONFIGS:
         params = r["control_params"] if name.startswith("CONTROL") \
@@ -2904,7 +3028,7 @@ def accuracy_harness(torch, port, name_limit):
                 or kw["dtype"] != "float32":
             eps = 1e-6 if kw["dtype"] == "float32" else 2.0 ** -8
             jobs += [(name, (eps, seed)) + job
-                     for seed in range(PERTURB_SEEDS)]
+                     for seed in range(CPU_PERTURB_SEEDS)]
     import multiprocessing
     with multiprocessing.get_context("spawn").Pool(4) as pool:
         means = pool.map(cpu_mean_nll, [j[1:] for j in jobs])
@@ -3208,7 +3332,44 @@ def nccl_share(events, trace_summary):
     return nccl / total if total else 0.0
 
 
-def tp_server_path(torch, port, name_limit, tmp, n, layers=None):
+def server_70b_argv(params, tp, dp=1, trace_dir=None):
+    """``llm_server``'s flags for the 70B server paths: i8i8 weights and
+    lm_head, int8 KV, the prefix cache on, ``tp`` ranks a replica, ``dp``
+    replicas, a trace of generator steps 10-19 in ``trace_dir``."""
+    return ["--device", "cuda", "--model-format", "random",
+            "--model-param-path", params, "--tokenizer-type", "dummy",
+            "--dtype", "bfloat16", "--quant-method", "online_i8i8",
+            "--quantize-lm-head", "--kv-cache-max-tokens", "32768",
+            "--enable-prefix-cache", "--max-running-batch", "8",
+            "--token-buckets", "256,512,1024,2048", "--max-tokens-per-step",
+            "2048", "--max-input-tokens-per-request", "2048",
+            "--max-total-tokens-per-request", "4096",
+            "--tensor-parallel-size", str(tp), "--data-parallel-size",
+            str(dp), *(["--trace-dir", trace_dir] if trace_dir else []),
+            "--host", "127.0.0.1", "--port", "0"]
+
+
+def server_70b_traffic():
+    """The 70B server paths' requests ``(id, prompt, new tokens)``: a cold
+    1,152-token prompt; 11 prompts on its 1,024-token prefix and 4 others,
+    mixed; a full hit of the cold prompt. Returns ``(cold, mixed, full,
+    the prefix-cache hit tokens they imply)``."""
+    V = LLAMA70B["vocab_size"]
+    rng = np.random.default_rng(SEED + 14)
+    prefix = rng.integers(3, V, 1024).tolist()
+    cold = (0, prefix + rng.integers(3, V, 128).tolist(), 64)
+    shared = [(1 + i, prefix + rng.integers(3, V, int(k)).tolist(), 64)
+              for i, k in enumerate(rng.integers(64, 193, 11))]
+    alone = [(20 + i, rng.integers(3, V, int(k)).tolist(), 64)
+             for i, k in enumerate(rng.integers(256, 1153, 4))]
+    mixed = shared[:3] + alone[:1] + shared[3:6] + alone[1:2] + \
+        shared[6:9] + alone[2:3] + shared[9:] + alone[3:]
+    full = (40, list(cold[1]), 64)
+    return cold, mixed, full, len(shared) * len(prefix) + len(full[1])
+
+
+def tp_server_path(torch, port, name_limit, tmp, n, layers=None,
+                   trace=True):
     """LLaMA-2-70B i8i8 (int8 lm_head too) int8-KV at full depth (80
     layers) served by
     ``llm_server --tensor-parallel-size n`` over a socket: this process is
@@ -3220,30 +3381,23 @@ def tp_server_path(torch, port, name_limit, tmp, n, layers=None):
     the exact hit count, no capture while serving, K1-K3 launched on rank
     0, a clean stop of every rank. A trace of generator steps 10-19 on
     every rank gives each rank's busy share and the NCCL kernels' share
-    of rank 0's device time. ``layers``: fewer than the 80 (with n=1:
-    one card serving one rank's share of the weights' bytes)."""
+    of rank 0's device time (``trace``; untraced, the times can stand
+    beside another untraced server's). ``layers``: fewer than the 80
+    (with n=1: one card serving one rank's share of the weights'
+    bytes)."""
     widths = dict(LLAMA70B, num_layers=layers or LLAMA70B["num_layers"])
     label = (f"server-70B i8i8 int8-KV tp={n}"
-             + (f", {layers} layers" if layers else ""))
+             + (f", {layers} layers" if layers else "")
+             + ("" if trace else ", untraced"))
     kernels = port["kernels"]
     params = f"{tmp}/llama2_70b_params.json"
     write_params_json(widths, params)
-    trace_dir = f"{tmp}/trace70b"
+    trace_dir = f"{tmp}/trace70b" if trace else None
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    served = Served(port, [
-        "--device", "cuda", "--model-format", "random",
-        "--model-param-path", params, "--tokenizer-type", "dummy",
-        "--dtype", "bfloat16", "--quant-method", "online_i8i8",
-        "--quantize-lm-head", "--kv-cache-max-tokens", "32768",
-        "--enable-prefix-cache", "--max-running-batch", "8",
-        "--token-buckets", "256,512,1024,2048", "--max-tokens-per-step",
-        "2048", "--max-input-tokens-per-request", "2048",
-        "--max-total-tokens-per-request", "4096",
-        "--tensor-parallel-size", str(n), "--trace-dir", trace_dir,
-        "--host", "127.0.0.1", "--port", "0"])
+    served = Served(port, server_70b_argv(params, n, trace_dir=trace_dir))
     closed = False
     try:
         engine, gen = served.engine, served.gen
@@ -3257,17 +3411,7 @@ def tp_server_path(torch, port, name_limit, tmp, n, layers=None):
             f"({engine.kv_cache.dtype}); weight build peak "
             f"{(engine.weight_build_peak_bytes or 0) >> 20} MiB; peak "
             f"{torch.cuda.max_memory_allocated() >> 20} MiB on {name_limit}")
-        V = LLAMA70B["vocab_size"]
-        rng = np.random.default_rng(SEED + 14)
-        prefix = rng.integers(3, V, 1024).tolist()
-        cold = (0, prefix + rng.integers(3, V, 128).tolist(), 64)
-        shared = [(1 + i, prefix + rng.integers(3, V, int(k)).tolist(), 64)
-                  for i, k in enumerate(rng.integers(64, 193, 11))]
-        alone = [(20 + i, rng.integers(3, V, int(k)).tolist(), 64)
-                 for i, k in enumerate(rng.integers(256, 1153, 4))]
-        mixed = shared[:3] + alone[:1] + shared[3:6] + alone[1:2] + \
-            shared[6:9] + alone[2:3] + shared[9:] + alone[3:]
-        full = (40, list(cold[1]), 64)
+        cold, mixed, full, want_hits = server_70b_traffic()
         plans = plan_recorder(engine)
         hits0 = gen.profiler.global_.cache_hit_count
         kernels.reset_launch_counts()
@@ -3283,7 +3427,6 @@ def tp_server_path(torch, port, name_limit, tmp, n, layers=None):
         check_streams(st_cold, [cold], label)
         check_streams(st_main, mixed, label)
         check_streams(st_full, [full], label)
-        want_hits = 11 * 1024 + len(full[1])
         check(hits == want_hits, f"{label}: the prefix cache hit {hits} "
               f"tokens, the prompts imply {want_hits}")
         serving_gates(torch, port, served, label, graphs0["graphs"], counts,
@@ -3296,7 +3439,7 @@ def tp_server_path(torch, port, name_limit, tmp, n, layers=None):
         peak = torch.cuda.max_memory_allocated() >> 20
         ts = port["trace_summary"]
         busy, spans, share, groups = {}, {}, None, {}
-        for r in range(n):
+        for r in range(n if trace else 0):
             path = f"{trace_dir}/rank{r}" if n > 1 else trace_dir
             try:
                 events = ts.load_trace(path)
@@ -3366,6 +3509,28 @@ def tp_server_path(torch, port, name_limit, tmp, n, layers=None):
         torch.cuda.empty_cache()
 
 
+def cards_and_build(torch, build):
+    """The multi-card modes' start: the cards' name and power limit
+    (logged, and kept for the failure line), then every kernel source
+    built at once; returns the name and limit."""
+    name_limit = gpu_name_and_limit()
+    CARD[0] = name_limit
+    log(f"[card] {name_limit} x {torch.cuda.device_count()} (torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda})")
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    log(f"[build] {len(paths)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
+    return name_limit
+
+
+def device_line(torch):
+    """The last line of every mode: the platform, the card, the count."""
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def tp_port_modules(torch):
     """The port's modules the tensor-parallel run uses."""
     from ppl.llm.serving_tpu_torch import config as port_config
@@ -3413,14 +3578,7 @@ def main_tensor_parallel(n, one_card_share=False):
     port["pk"] = paged_attention
     t_start = time.perf_counter()
     try:
-        name_limit = gpu_name_and_limit()
-        CARD[0] = name_limit
-        log(f"[card] {name_limit} x {torch.cuda.device_count()} (torch "
-            f"{torch.__version__}, CUDA {torch.version.cuda})")
-        t0 = time.perf_counter()
-        paths = _build.build_all()
-        log(f"[build] {len(paths)} libraries in "
-            f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
+        name_limit = cards_and_build(torch, _build)
         t0 = time.perf_counter()
         res = tp_steps(torch, port, n)
         for (quant, dtype, what), r in ((k, v) for k, v in res.items()
@@ -3511,9 +3669,7 @@ def main_tensor_parallel(n, one_card_share=False):
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     log(name_limit)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    device_line(torch)
     return 0
 
 
@@ -3536,9 +3692,7 @@ def main_data_parallel(n_rep):
     port = dict(kernels=kernels, llm_server=llm_server,
                 client_qps_measure=client_qps_measure, llm_pb2=llm_pb2)
     try:
-        name_limit = gpu_name_and_limit()
-        CARD[0] = name_limit
-        _build.build_all()
+        name_limit = cards_and_build(torch, _build)
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             data_parallel_path(torch, port, name_limit, tmp, n_rep)
@@ -3547,9 +3701,187 @@ def main_data_parallel(n_rep):
         log(f"FAIL: {e}")
         return 1
     log(name_limit)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    device_line(torch)
+    return 0
+
+
+def dp_tp_server_path(torch, port, name_limit, tmp, dp, tp):
+    """LLaMA-2-70B i8i8 (int8 lm_head too) int8-KV at full depth (80
+    layers) served by ``llm_server --tensor-parallel-size tp
+    --data-parallel-size dp`` over a socket: this process is the frontend
+    and replica 0's controller on cuda:0 (its workers on cuda:1..tp-1);
+    replica i's controller is a child process on cuda:i*tp with its own
+    workers. The traffic of the tp=4 path (:func:`tp_server_path`), each
+    request sent ``dp`` times in its stream's one BatchedRequest, so the
+    router deals one copy to each replica: a cold 1,152-token prompt,
+    then 11 hits of its 1,024-token prefix and 4 other prompts as 4
+    concurrent streams, then a full hit; 64 greedy new tokens each.
+    Gates: each replica's ranks on their own cards (as each rank names
+    its device); every stream ends with FINISH_REASON_LENGTH and 64
+    tokens; every replica took a copy of every request and dispatched;
+    each replica's prefix-cache hits are the ones its prompts imply;
+    each prompt's greedy tokens equal on every replica; no capture while
+    serving on any replica; K1-K3 launched on every replica's controller;
+    every process exits with 0 at the stop."""
+    label = f"server-70B i8i8 int8-KV dp={dp} x tp={tp}"
+    kernels = port["kernels"]
+    params = f"{tmp}/llama2_70b_params.json"
+    write_params_json(LLAMA70B, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = Served(port, server_70b_argv(params, tp, dp))
+    closed = False
+    try:
+        setup_s = time.perf_counter() - t0
+        reps = served.gen._gens
+        engine = served.engine
+        placed = [r.devices for r in reps]
+        want = [[f"cuda:{i * tp + k}" for k in range(tp)] for i in range(dp)]
+        check(placed == want, f"{label}: ranks by replica on {placed}, want "
+              f"{want}")
+        graphs0 = [engine.graph_stats()["graphs"]] + [r.info["graphs"]
+                                                      for r in reps[1:]]
+        log(f"[e2e {label}] llm_server build_server ready in {setup_s:.1f} "
+            f"s: ranks by replica {placed}; CUDA graphs by replica "
+            f"{graphs0}; KV pool {reps[0].generator.kv_cache_max_tokens} "
+            f"tokens a replica; on {name_limit}")
+        cold, mixed, full, want_hits = server_70b_traffic()
+        hits0 = reps[0].generator.profiler.global_.cache_hit_count
+        kernels.reset_launch_counts()
+        st_main, elapsed, st_cold = stream_requests(
+            port, served.target, mixed, 4, first=[cold], copies=dp)
+        st_full, _, _ = stream_requests(port, served.target, [full], 1,
+                                        copies=dp)
+        counts = kernels.launch_counts()
+        hits = [reps[0].generator.profiler.global_.cache_hit_count - hits0]
+        graphs_r0 = engine.graph_stats()["graphs"]
+        dispatched_r0 = dict(engine.dispatch_counts)
+        for st, reqs in ((st_cold, [cold]), (st_main, mixed),
+                         (st_full, [full])):
+            check_streams(st, reqs, label, copies=dp)
+            for rid, _, _ in reqs:
+                toks = [st.token_ids[rid * dp + r] for r in range(dp)]
+                check(all(t == toks[0] for t in toks), f"{label}: request "
+                      f"{rid}'s greedy tokens differ between replicas")
+        tasks = [r.tasks for r in reps]
+        check(tasks == [len(mixed) + 2] * dp, f"{label}: tasks by replica "
+              f"{tasks}, want {len(mixed) + 2} each")
+        m = port["client_qps_measure"].summarize(st_main, elapsed)
+        cold_ttft = [(st_cold.first_ts[r] - st_cold.send_ts[r]) * 1e3
+                     for r in range(dp)]
+        full_ttft = [(st_full.first_ts[40 * dp + r]
+                      - st_full.send_ts[40 * dp + r]) * 1e3
+                     for r in range(dp)]
+        t_stop = time.perf_counter()
+        served.close()
+        closed = True
+        stop_s = time.perf_counter() - t_stop
+        reports = [r.report for r in reps[1:]]
+        check(all(rep is not None for rep in reports),
+              f"{label}: a replica sent no report at its stop")
+        graphs = [graphs_r0] + [rep["graphs"]["graphs"] for rep in reports]
+        dispatches = [dispatched_r0] + [rep["dispatch_counts"]
+                                        for rep in reports]
+        launches = [counts] + [rep["launches"] for rep in reports]
+        hits += [rep["cache_hit_count"] for rep in reports]
+        codes = ([p.returncode for p in reps[0].workers]
+                 + [r.proc.returncode for r in reps[1:]]
+                 + [c for rep in reports for c in rep["worker_exit_codes"]])
+        log(f"[e2e {label}] {len(mixed) + 2} requests x {dp} copies ended "
+            f"with 64 tokens each (FINISH_REASON_LENGTH), none failed; each "
+            f"request's greedy tokens equal on every replica; tasks by "
+            f"replica {tasks}; dispatches by replica {dispatches}; CUDA "
+            f"graphs by replica {graphs0} at startup, {graphs} after "
+            f"serving; prefix-cache hit tokens by replica {hits}; launches "
+            f"by replica {launches}; exit codes of the other processes "
+            f"{codes}")
+        log(f"[e2e {label}] TTFT cold {[round(t, 1) for t in cold_ttft]} ms "
+            f"(1,152-token prompt, by replica), full hit "
+            f"{[round(t, 1) for t in full_ttft]} ms; client_qps_measure over "
+            f"the {len(mixed)} x {dp} concurrent requests (4 streams of {dp}"
+            f"): avg prefill latency {m['avg_prefill_ms']:.1f} ms, avg "
+            f"decode latency per token (TPOT) {m['avg_decode_ms']:.2f} ms, "
+            f"tokens out per sec {m['tokens_out_per_s']:.1f}, benchmark "
+            f"time {elapsed:.3f} s; startup {setup_s:.1f} s; stopped in "
+            f"{stop_s:.1f} s; on {name_limit}")
+        check(hits == [want_hits] * dp, f"{label}: the prefix cache hit "
+              f"{hits} tokens by replica, the prompts imply {want_hits} "
+              "each")
+        check(graphs == graphs0, f"{label}: CUDA graphs by replica "
+              f"{graphs0} at startup, {graphs} after serving: a capture ran "
+              "while serving")
+        check(all(sum(d.values()) > 0 for d in dispatches),
+              f"{label}: dispatches by replica {dispatches}")
+        for i, c in enumerate(launches):
+            for name in ATTN + ("i8i8_matmul",):
+                check(c[name] > 0, f"{label}: replica {i}: {name} never "
+                      "launched")
+            for name in ("w4a8_matmul", "page_read") + ALIBI:
+                check(c[name] == 0, f"{label}: replica {i}: {name} "
+                      f"launched {c[name]} times")
+        check(codes == [0] * (dp * tp - 1), f"{label}: exit codes of the "
+              f"other {dp * tp - 1} processes {codes}")
+        return dict(path=label, setup_s=setup_s, cold_ttft_ms=cold_ttft,
+                    full_hit_ttft_ms=full_ttft,
+                    avg_prefill_ms=m["avg_prefill_ms"],
+                    avg_decode_ms=m["avg_decode_ms"],
+                    tokens_out_per_s=m["tokens_out_per_s"],
+                    elapsed_s=elapsed, tasks=tasks, dispatches=dispatches,
+                    hits=hits, launches=launches, stop_s=stop_s)
+    finally:
+        if not closed:
+            served.close()
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def main_dp_tp(dp, tp):
+    """``python3 chip_smoke.py --data-parallel D --tensor-parallel T`` on a
+    machine with D x T cards: the build, then LLaMA-2-70B i8i8 int8-KV
+    served by D replicas of T-card tensor-parallel groups behind one
+    frontend (:func:`dp_tp_server_path`); beside it, the same cards as one
+    tp=D*T group on the same traffic, sent once (:func:`tp_server_path`,
+    untraced like the replicas; its gates, its times only reported);
+    then the device line, ``count`` the cards PyTorch sees."""
+    import torch
+    n = dp * tp
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        log(f"FAIL: --data-parallel {dp} --tensor-parallel {tp} needs {n} "
+            "CUDA GPUs")
+        return 1
+    try:
+        port = tp_port_modules(torch)
+        from ppl.llm.serving_tpu_torch.ops.kernels import _build
+    except ImportError as e:
+        log(f"FAIL: run chip_smoke.py from the root of a checkout ({e})")
+        return 1
+    t_start = time.perf_counter()
+    try:
+        name_limit = cards_and_build(torch, _build)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            both = dp_tp_server_path(torch, port, name_limit, tmp, dp, tp)
+        log(f"[phase dp x tp server] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            one = tp_server_path(torch, port, name_limit, tmp, n, trace=False)
+        log(f"[phase dp x tp beside: tp={n}] {time.perf_counter() - t0:.1f} s")
+        log(f"[dp x tp] this run, both untraced, the same requests: dp={dp} "
+            f"x tp={tp} (each request on both replicas) TPOT "
+            f"{both['avg_decode_ms']:.2f} ms, {both['tokens_out_per_s']:.1f} "
+            f"tokens out/s, startup {both['setup_s']:.1f} s; tp={n} (each "
+            f"request once) TPOT {one['avg_decode_ms']:.2f} ms, "
+            f"{one['tokens_out_per_s']:.1f} tokens out/s, startup "
+            f"{one['setup_s']:.1f} s; on {name_limit} (reported, not gated)")
+    except (PhaseError, subprocess.TimeoutExpired) as e:
+        log(f"FAIL: {e}")
+        return 1
+    log(f"[done] the dp={dp} x tp={tp} path passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(name_limit)
+    device_line(torch)
     return 0
 
 
@@ -3690,7 +4022,9 @@ def main():
                 ("llama2-7b w4a8", "online_w4a8", LLAMA7B),
                 ("baichuan-13b i8i8", "online_i8i8", BAICHUAN13B),
                 ("internlm-7b i8i8", "online_i8i8", INTERNLM7B)):
+            ts = time.perf_counter()
             sx = steps[key] = step_cross_check(torch, port, quant, widths)
+            sx["s"] = time.perf_counter() - ts
             sens = ("" if not sx["sensitivity"] else
                     "; 1e-6 attention perturbations move them "
                     + ", ".join(f"{v:.3g}" for v in sx["sensitivity"])
@@ -3703,13 +4037,15 @@ def main():
                 f"{sx['cache_tol']:.3g}); greedy "
                 f"tokens cuda {sx['tokens_cuda']} cpu {sx['tokens_cpu']} "
                 f"(equal on {sx['rows_decided']}/{sx['rows']} rows whose "
-                f"top-2 margin exceeds twice the logit error)")
+                f"top-2 margin exceeds twice the logit error; "
+                f"{sx['s']:.1f} s)")
             torch.cuda.empty_cache()
         for key, quant, widths, block_tail in (
                 ("llama2-7b w4a8", "online_w4a8", LLAMA7B, "auto"),
                 ("llama2-7b w4a8", "online_w4a8", LLAMA7B, "on"),
                 ("baichuan-13b i8i8", "online_i8i8", BAICHUAN13B, "auto"),
                 ("baichuan-13b i8i8", "online_i8i8", BAICHUAN13B, "on")):
+            ts = time.perf_counter()
             bx = block_cross_check(torch, port, block_tail, steps[key],
                                    widths, quant)
             log(f"[block] 2-layer D={widths['hidden_dim']} f32 "
@@ -3722,8 +4058,10 @@ def main():
                 f"{bx['logprob_max_abs_err']:.3g}, written cache rows "
                 f"({bx['rows_written']}) max|diff| "
                 f"{bx['cache_max_abs_err']:.3g} (tol "
-                f"{steps[key]['cache_tol']:.3g})")
+                f"{steps[key]['cache_tol']:.3g}; "
+                f"{time.perf_counter() - ts:.1f} s)")
             torch.cuda.empty_cache()
+        ts = time.perf_counter()
         bt = block_tail_bound(torch, port)
         log(f"[block] LLaMA-2-7B widths, 32 layers, bf16, w4a8 + int4 "
             f"lm_head + int8 KV, one {bt['steps']}-step block on cuda, "
@@ -3733,7 +4071,9 @@ def main():
             f"how far 2^-8 attention perturbations move the per-step "
             f"block, " + ", ".join(f"{v:.3g}" for v in bt["sensitivity"])
             + f"; max|logit| {bt['scale']:.3g}); {bt['rows_equal']} of "
-            f"{bt['rows']} rows' {bt['steps']} greedy tokens equal")
+            f"{bt['rows']} rows' {bt['steps']} greedy tokens equal "
+            f"({time.perf_counter() - ts:.1f} s)")
+        ts = time.perf_counter()
         px = prefix_chunk_cross_check(torch, port, LLAMA7B)
         for name, r in px.items():
             log(f"[step] 2-layer D={LLAMA7B['hidden_dim']} f32 online_i8i8 "
@@ -3748,6 +4088,9 @@ def main():
                 f"(tol {r['cache_tol']:.3g}); greedy tokens cuda "
                 f"{r['tokens_cuda']} cpu {r['tokens_cpu']} (equal on "
                 f"{r['rows_decided']}/{r['rows']} decided rows)")
+        log(f"[step] prefix-hit and chunk steps: "
+            f"{time.perf_counter() - ts:.1f} s")
+        ts = time.perf_counter()
         nx = nll_cross_check(torch, port, LLAMA7B)
         log(f"[nll] 2-layer D={LLAMA7B['hidden_dim']} f32 online_i8i8 + "
             f"int8 KV make_nll_fn, one 512-token row (500 valid), cuda "
@@ -3756,7 +4099,7 @@ def main():
             f"{nx['scale']:.3g}; 1e-6 attention perturbations move it "
             + ", ".join(f"{v:.3g}" for v in nx["sensitivity"])
             + f" on cpu); mean NLL cuda {nx['mean_cuda']:.6f} cpu "
-            f"{nx['mean_cpu']:.6f}")
+            f"{nx['mean_cpu']:.6f} ({time.perf_counter() - ts:.1f} s)")
         torch.cuda.empty_cache()
         log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
 
@@ -3799,6 +4142,10 @@ def main():
         e2e.update((k, v) for k, v in tools_out.items() if k in
                    dict(BENCHES))
         log(f"[phase 7 tools] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            e2e[CANONICAL_LABEL] = canonical_phase(name_limit, tmp)
+        log(f"[phase 8 canonical] {time.perf_counter() - t0:.1f} s")
     except (PhaseError, subprocess.TimeoutExpired) as e:
         log(f"FAIL: {e}")
         return 1
@@ -3858,13 +4205,14 @@ def main():
             **({"splits": c["splits"]} if "splits" in c else {})))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    device_line(torch)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--data-parallel"] and \
+            sys.argv[3:4] == ["--tensor-parallel"]:
+        sys.exit(main_dp_tp(int(sys.argv[2]), int(sys.argv[4])))
     if sys.argv[1:2] == ["--data-parallel"]:
         sys.exit(main_data_parallel(int(sys.argv[2])))
     if sys.argv[1:2] == ["--tensor-parallel"]:

@@ -182,4 +182,11 @@ def create_engine(model_cfg: ModelConfig, resource_cfg: ResourceConfig,
         engine.batch_buckets = buckets
     if validate_grid:
         max_running_batch = validate(engine, max_running_batch)
+        graphs = engine.graph_stats()
+        logger.info("bucket grid validated before serving: batch buckets "
+                    "%s, max_running_batch %d, max_prefill_rows %s, %d "
+                    "CUDA graphs (%d MiB pool), KV pool %d tokens",
+                    engine.batch_buckets, max_running_batch,
+                    engine.max_prefill_rows, graphs["graphs"],
+                    graphs["pool_bytes"] >> 20, kv_cache_max_tokens)
     return engine, kv_cache_max_tokens, max_running_batch

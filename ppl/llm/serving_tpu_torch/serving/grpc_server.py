@@ -184,6 +184,13 @@ class GRPCConnection(Connection):
         if done:
             call.put(None)
 
+    def fail_all(self, rc: int = 1, msg: str = "") -> None:
+        """Fail every request still in flight (the server is ending)."""
+        with self._lock:
+            tids = list(self._tid_to_call)
+        for tid in tids:
+            self.notify_failure(tid, rc, msg)
+
 
 def _generic_handler(generation):
     return grpc.method_handlers_generic_handler(

@@ -152,35 +152,44 @@ def summarize(stats, elapsed):
         requests_per_s=len(done) / elapsed)
 
 
-async def main_async(args):
-    if args.tokenizer_path:
+async def measure(target, dataset, num_requests, request_rate=float("inf"),
+                  token_in_out=False, early_stopping=False, timeout=None,
+                  tokenizer_path=""):
+    """Replay the first ``num_requests`` samples of ``dataset`` against
+    ``target``; returns (their Stats, seconds from the first send to the
+    last finish, the number of requests sent)."""
+    if tokenizer_path:
         from ppl.llm.serving_tpu_torch.tokenizer import create_tokenizer
-        tok = create_tokenizer("llama", args.tokenizer_path)
+        tok = create_tokenizer("llama", tokenizer_path)
     else:
         from ppl.llm.serving_tpu_torch.tokenizer.factory import ByteTokenizer
         tok = ByteTokenizer()
-    workload = load_workload(args.dataset, tok, args.num_requests)
-    print(f"[INFO] loaded {len(workload)} requests from {args.dataset}")
+    workload = load_workload(dataset, tok, num_requests)
+    print(f"[INFO] loaded {len(workload)} requests from {dataset}")
 
     rng = random.Random(0)
     stats = Stats()
-    async with grpc.aio.insecure_channel(args.target) as channel:
+    async with grpc.aio.insecure_channel(target) as channel:
         t0 = time.perf_counter()
         tasks = []
         for rid, (prompt, n_in, n_out) in enumerate(workload):
             tasks.append(asyncio.create_task(run_one(
                 channel, stats, rid, prompt, n_in, n_out,
-                args.token_in_out, args.early_stopping,
-                timeout=args.timeout)))
-            if args.request_rate != float("inf"):
-                await asyncio.sleep(rng.expovariate(args.request_rate))
+                token_in_out, early_stopping, timeout=timeout)))
+            if request_rate != float("inf"):
+                await asyncio.sleep(rng.expovariate(request_rate))
         await asyncio.gather(*tasks)
         elapsed = time.perf_counter() - t0
+    return stats, elapsed, len(workload)
 
+
+def report(stats, elapsed, n_sent):
+    """Print the reference's metric block; returns :func:`summarize`'s
+    dict."""
     m = summarize(stats, elapsed)
     done = m["done"]
     print(f"[RESULT] benchmark time: {elapsed:.2f} s")
-    print(f"[RESULT] finished {len(done)}/{len(workload)} "
+    print(f"[RESULT] finished {len(done)}/{n_sent} "
           f"(failed {stats.failed})")
     if done:
         print(f"[RESULT] avg input len: {m['total_in'] / len(done):.1f}, "
@@ -197,9 +206,10 @@ async def main_async(args):
         report_dist("prefill latency", m["prefill_ms"])
         report_dist("decode latency", m["decode_ms"])
         report_dist("prompt latency", m["e2e_ms"])
+    return m
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--target", default="127.0.0.1:23333")
     p.add_argument("--dataset", required=True,
@@ -215,8 +225,11 @@ def main():
                         "default ignores EOS like the reference client)")
     p.add_argument("--timeout", type=float, default=3600.0,
                    help="deadline of each request's stream, seconds")
-    args = p.parse_args()
-    asyncio.run(main_async(args))
+    args = p.parse_args(argv)
+    report(*asyncio.run(measure(
+        args.target, args.dataset, args.num_requests, args.request_rate,
+        args.token_in_out, args.early_stopping, args.timeout,
+        args.tokenizer_path)))
 
 
 if __name__ == "__main__":

@@ -111,6 +111,10 @@ def add_generator_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--trace-dir", default="",
                    help="capture a torch.profiler trace of generator "
                         "steps 10..20 (run must reach step 20)")
+    p.add_argument("--disable-log-req", action="store_true",
+                   help="no log line a request (the data-parallel "
+                        "replicas of tensor-parallel groups log each task "
+                        "they take and each cancel)")
 
 
 def build_configs(args):

@@ -5,8 +5,10 @@ jax. The walk covers the serving frontend (``serving.*``: gRPC server,
 proto, metrics, dp router), the serving tools, the checkpoint loader,
 the sentencepiece tokenizer, the eval tools and the measuring tools
 (bench, trace_summary, validate_kernels, the microbenches, bench_sweep,
-bench_cold_start), of these only bench_cold_start may load grpc, and
-tensor parallelism (``parallel.*``: shardings, kernel_tp, multihost)."""
+bench_cold_start, bench_canonical), of these only bench_cold_start and
+bench_canonical (gRPC clients of the server) may load grpc, tensor
+parallelism (``parallel.*``: shardings, kernel_tp, multihost) and the
+data-parallel replicas' channel (``serving.replicas``)."""
 
 import os
 import subprocess
@@ -28,7 +30,8 @@ bad = sorted(k for k in sys.modules
 print(len(names), bad)
 assert not bad, bad
 serving = {"serving", "serving.grpc_server", "serving.metrics",
-           "serving.dp_router", "serving.proto", "serving.proto.llm_pb2",
+           "serving.dp_router", "serving.replicas", "serving.proto",
+           "serving.proto.llm_pb2",
            "tools.llm_server", "tools.client_sample",
            "tools.client_qps_measure", "tools.client_pressure",
            "tools.gen_samples", "tools.benchmark_prefix_cache",
@@ -57,19 +60,22 @@ assert not _build._libs
 """
 
 
-# the measuring tools; all but bench_cold_start stay clear of grpc
+# the measuring tools; all but the gRPC clients stay clear of grpc
+GRPC_CLIENTS = ("tools.bench_cold_start", "tools.bench_canonical")
 MEASURING = ("tools.bench", "tools.trace_summary", "tools.validate_kernels",
              "tools.microbench_quant_matmul", "tools.microbench_scatter",
-             "tools.bench_sweep", "tools.bench_cold_start")
+             "tools.bench_sweep") + GRPC_CLIENTS
 
 NO_GRPC = r"""
 import importlib, sys
-names = sys.argv[1:]
-for name in names[:-1]:
+n_clients = int(sys.argv[1])
+names = sys.argv[2:]
+for name in names[:-n_clients]:
     importlib.import_module("ppl.llm.serving_tpu_torch." + name)
 loaded = sorted(k for k in sys.modules if k.split(".")[0] == "grpc")
 assert not loaded, loaded
-importlib.import_module("ppl.llm.serving_tpu_torch." + names[-1])
+for name in names[-n_clients:]:
+    importlib.import_module("ppl.llm.serving_tpu_torch." + name)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib")
              or k.startswith("ppl.llm.serving_tpu."))
 assert not bad, bad
@@ -112,9 +118,11 @@ def test_port_sources_name_no_jax():
 def test_measuring_tools_load_no_grpc_but_bench_cold_start():
     """The bench, the trace summary, validate_kernels, the microbenches and
     the sweep import without grpc (they run where no server does);
-    bench_cold_start, a gRPC client of the server, is allowed it."""
-    assert MEASURING[-1] == "tools.bench_cold_start"
-    out = subprocess.run([sys.executable, "-c", NO_GRPC, *MEASURING],
+    bench_cold_start and bench_canonical, gRPC clients of the server, are
+    allowed it."""
+    assert MEASURING[-len(GRPC_CLIENTS):] == GRPC_CLIENTS
+    out = subprocess.run([sys.executable, "-c", NO_GRPC,
+                          str(len(GRPC_CLIENTS)), *MEASURING],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", \

@@ -12,10 +12,12 @@ rank's shards as the port builds and loads them.
   checkpoint loader at tp=2 keep exactly the slices of the tp=1 build and
   load.
 - ``validate_tp``'s refusals carry the JAX messages; w4a8 at tp > 1, data
-  parallelism with tensor parallelism, tp > 1 in offline_inference, and a
-  tp engine without a process group are refused.
+  parallelism with ``--coordinator-address`` (the JAX tool's message),
+  tp > 1 in offline_inference, and a tp engine without a process group
+  are refused.
 """
 
+import os
 import sys
 
 import jax
@@ -233,10 +235,22 @@ SERVER = ["--device", "cpu", "--model-format", "random",
           "--kv-cache-max-tokens", "4096", "--port", "0"]
 
 
-def test_data_parallel_with_tensor_parallel_is_refused():
-    with pytest.raises(ConfigError, match="not yet ported"):
-        llm_server.build_server(SERVER + ["--tensor-parallel-size", "2",
-                                          "--data-parallel-size", "2"])
+def test_data_parallel_with_coordinator_address_is_refused_as_in_jax():
+    """One multi-process group serves one replica: dp with
+    --coordinator-address is refused with the JAX tool's message
+    (serving_tpu/tools/llm_server.py), in the frontend and on a worker."""
+    msg = "run one server process per dp replica set"
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "ppl", "llm", "serving_tpu", "tools",
+            "llm_server.py")) as f:
+        assert msg in f.read()
+    flags = ["--tensor-parallel-size", "2", "--data-parallel-size", "2",
+             "--coordinator-address", "127.0.0.1:1", "--num-processes", "2"]
+    with pytest.raises(ConfigError, match=msg):
+        llm_server.build_server(SERVER + flags + ["--process-id", "0"])
+    with pytest.raises(ConfigError, match=msg):
+        llm_server.serve_worker(llm_server.build_parser().parse_args(
+            SERVER + flags + ["--process-id", "1"]))
 
 
 def test_offline_inference_refuses_tensor_parallel(monkeypatch):
