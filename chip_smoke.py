@@ -35,15 +35,22 @@ records its program keys, and a restart that captures them.
 2. builds every CUDA kernel from csrc/ (one nvcc per source, in parallel),
    prints each kernel's registers and spills, and counts the tensor-core
    instructions (cuobjdump -sass) of K3's and K4's two tiles each (IMMA)
-   and K1's and K2's bf16 bodies (HMMA), failing if any is 0;
-3. one phase per kernel at each path's shapes: kernel vs its plain
-   PyTorch version on the same inputs with the stated tolerance, kernel
-   ms, plain ms, the least time the card could take (bound), and one
+   and K1's and K2's bf16 bodies (HMMA), and the bulk asynchronous copy
+   (UBLKCP) in K5's kernel, failing if any is 0;
+3. the launch floor (what the timer reads around one empty launch, a
+   yardstick beside every row); one phase per kernel at each path's
+   shapes: kernel vs its plain PyTorch version on the same inputs with
+   the stated tolerance, kernel ms, plain ms, the least time the card could take (bound), and one
    PyTorch library call computing the same function as a yardstick
    (never called by the port; none exists for K4, which gets torch._int_mm
    on the unpacked int8 weight as an orientation figure only); K1 also in
    block-tail mode; K1/K2 with ALiBi (SDPA with the bias as its mask);
-   K5 exact; K1's rows print the context splits S of their grid, K3's
+   K5 exact (at the microbench's geometry with 8 rows and all 128, and
+   at 40 KV heads, whose page is no whole number of its chunks); K1's
+   decode rows give each row pages of its own, as serving does; the
+   canonical path's widths: K1 at LLaMA-2-7B over int8 KV at B=32 and
+   64, K3 at 7B widths at T=32 and 64 and at TinyLlama's at T=64 (the
+   b64 bench); K1's rows print the context splits S of their grid, K3's
    and K4's split-K rows their pieces S, each repeatable bit for bit;
    K2 also at the NLL forward's row (one row of 1,024 tokens at start 0,
    bf16 and int8 KV; yardstick SDPA with is_causal);
@@ -113,10 +120,12 @@ records its program keys, and a restart that captures them.
    start only; the cold start records at least one program key, the warm
    start captures every live key before it listens, and its probe runs
    no manifest key eagerly); the host-turnaround microbench
-   (microbench_tunnel); and one line timing the host allocators, the
+   (microbench_tunnel); one line timing the host allocators, the
    native host runtime against the port's Python classes, at the
    canonical pool (128 pages) and at the 13B auto pool (784 pages)
-   (:func:`host_allocators`);
+   (:func:`host_allocators`); and the library-embedding sample
+   (``python -m ppl.llm.serving_tpu_torch.samples.embed_serving``, the
+   demo model, 16 tokens on cuda);
 8. the canonical qps benchmark, ``python -m
    ppl.llm.serving_tpu_torch.tools.bench_canonical --model 7b`` as a
    user runs it (:func:`canonical_phase`: LLaMA-2-7B i8i8 + int8 KV + an
@@ -347,6 +356,41 @@ def tensor_core_check():
             check(len(fns) > 0 and n > 0, f"{what}: no {op} in its SASS")
 
 
+def bulk_copy_check():
+    """The bulk asynchronous copy in K5's SASS: the cp.async.bulk that its
+    kernel issues, which sm_90 runs as UBLKCP (the forms found are
+    logged); a build that compiled the copy away fails."""
+    from ppl.llm.serving_tpu_torch.ops.kernels import _build
+    listing = _build.sass_listing("cache_read")
+    fns = [c for fn, c in _build.parse_sass_counts(
+        listing, ("UBLKCP",)).items() if "page_read_kernel" in fn]
+    n = sum(c["UBLKCP"] for c in fns)
+    forms = sorted(set(re.findall(r"\bUBLKCP(?:\.[A-Z0-9_]+)*", listing)))
+    log(f"[build] K5 page read: {n} UBLKCP instructions "
+        f"({', '.join(forms) or 'none'}) in {len(fns)} kernels "
+        "(cuobjdump -sass)")
+    if not n:
+        ops = sorted(set(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            listing)))
+        log(f"[build] cache_read's SASS opcodes: {ops}")
+    check(len(fns) == 1 and n > 0, "K5: no bulk copy (UBLKCP) in its SASS")
+
+
+def launch_floor(torch, timer):
+    """What :class:`Timer` reads around one launch that does no work
+    (PyTorch's spin kernel for 0 cycles) and around no launch at all: a
+    yardstick beside every kernel row, subtracted from none."""
+    floor = dict(empty_launch_ms=timer.ms(lambda: torch.cuda._sleep(0),
+                                          iters=50),
+                 events_ms=timer.ms(lambda: None, iters=50))
+    log(f"[kernel] launch floor: an empty launch "
+        f"{floor['empty_launch_ms']:.4f} ms, the events alone "
+        f"{floor['events_ms']:.4f} ms (the Timer: L2 flushed, device spin, "
+        f"events around one launch, mean of 50) on {CARD[0]}")
+    return floor
+
+
 # ------------------------------------------------------------ kernel phases
 
 def geometry(widths):
@@ -411,11 +455,20 @@ def attn_check(name, out, ref, out32, ref32, alibi=False, rel=False):
     return err, err32
 
 
+# K1 decode rows' contexts: [DECODE_CTX_LO, DECODE_CTX_HI) tokens
+DECODE_CTX_LO, DECODE_CTX_HI = 100, 433
+
+
 def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
                  quantized, batches, label, rel=False):
+    """K1 decode at batches ``batches``: each row's pages are its own, as
+    in serving (no page read twice by one launch), so the pool holds
+    every row's pages at the largest batch."""
     hq, kvh, hd, L = geometry(widths)
-    spec = kv_cache.CacheSpec(num_layers=L, num_pages=600 if not quantized
-                              else 64, page_size=PS, num_kv_heads=kvh,
+    pool = max(batches) * -(-DECODE_CTX_HI // PS)
+    spec = kv_cache.CacheSpec(num_layers=L, num_pages=max(
+                                  pool, 600 if not quantized else 64),
+                              page_size=PS, num_kv_heads=kvh,
                               head_dim=hd, quant_bit=8 if quantized else 0,
                               quant_group=8 if quantized else 1,
                               dtype=torch.bfloat16)
@@ -425,13 +478,13 @@ def decode_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
     rng = np.random.default_rng(SEED)
     cases = []
     for b in batches:
-        ctx = rng.integers(100, 433, b).astype(np.int32)
+        ctx = rng.integers(DECODE_CTX_LO, DECODE_CTX_HI, b).astype(np.int32)
         ctx[rng.choice(b, max(1, b // 16), replace=False)] = 0  # padding
         pt = np.full((b, KVP), spec.trash_page, np.int32)
+        free = iter(rng.permutation(spec.num_pages))
         for r in range(b):
             n_pages = -(-int(ctx[r]) // PS)
-            pt[r, :n_pages] = rng.choice(spec.num_pages, n_pages,
-                                         replace=False)
+            pt[r, :n_pages] = [next(free) for _ in range(n_pages)]
         ctx_t = torch.from_numpy(ctx).to(dev)
         pt_t = torch.from_numpy(pt).to(dev)
         q = torch.randn((b, hq, hd), generator=g, device=dev,
@@ -917,40 +970,66 @@ def i8i8_cases(torch, timer, qk, quant_ops, cfg, label, ts=(8, 1024),
     return cases
 
 
-def page_read_cases(torch, timer, cache_read):
-    """K5 at the microbench's geometry (LLaMA-2-7B int8 cache, 128
-    pages): the page read against its plain version, exact."""
+# K5's time a launch in its first design (one CTA a head, its page pulled
+# through registers; PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W)
+K5_EARLIER_MS = 0.0093
+
+
+def page_read_cases(torch, timer, cache_read, floor):
+    """K5 against its plain version, exact, with its chunk plan: at the
+    microbench's geometry (LLaMA-2-7B int8 cache, 128 pages) reading 8
+    rows and all PS rows (every chunk converts), and at Baichuan-13B's 40
+    KV heads, whose page is no whole number of the plan's chunks (25 of 5
+    rows, a last of 3)."""
     from ppl.llm.serving_tpu_torch.tools import microbench_scatter_7b as mb
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
-    shape = (mb.KVH, mb.L * (mb.NPAGES + 1) * mb.PS, mb.R)
-    cache = torch.randint(-128, 128, shape, generator=g, device=dev,
-                          dtype=torch.int8)
-    rows = 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    big = torch.randint(-128, 128, (mb.KVH, mb.L * (mb.NPAGES + 1) * mb.PS,
+                                    mb.R), generator=g, device=dev,
+                        dtype=torch.int8)
+    small = torch.randint(-128, 128, (40, 3 * mb.PS, mb.R), generator=g,
+                          device=dev, dtype=torch.int8)
+    cases = []
+    for cache, rows, what in ((big, 8, "microbench 7B int8 cache"),
+                              (big, mb.PS, "microbench 7B, rows = PS,"),
+                              (small, 8, "13B's 40 kv heads")):
+        kvh, _, r = cache.shape
+        chunk_rows, n_chunks = cache_read.plan_page_read(kvh, mb.PS, r, sms)
 
-    def kern():
-        return cache_read.page_read(cache, rows=rows, page_size=mb.PS)
+        def kern(cache=cache, rows=rows):
+            return cache_read.page_read(cache, rows=rows, page_size=mb.PS)
 
-    def plain():
-        return cache_read.page_read_ref(cache, rows)
+        def plain(cache=cache, rows=rows):
+            return cache_read.page_read_ref(cache, rows)
 
-    out, ref = kern(), plain()
-    torch.cuda.synchronize()
-    check(torch.equal(out, ref), "K5 page read differs from its plain "
-          f"version: max|diff| {float((out - ref).abs().max())}")
-    # every head's page read once, the f32 rows written once
-    bytes_moved = mb.KVH * mb.PS * mb.R + mb.KVH * rows * mb.R * 4
-    bms, by = bound(bytes_moved, 0, PEAK_BF16)
-    case = report("page_read", dict(
-        case=f"microbench 7B int8 cache {tuple(shape)} page {mb.PS} rows "
-        f"-> f32 [{mb.KVH}, {rows}, {mb.R}]", path="microbench",
-        max_abs_err=0.0, tol="exact", ms=timer.ms(kern),
-        plain_ms=timer.ms(plain, iters=5),
-        library_ms=timer.ms(lambda: cache[:, :rows].float(), iters=5),
-        bound_ms=bms, bound_by=by))
-    del cache
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K5 page read ({what}, rows {rows}) "
+              "differs from its plain version: max|diff| "
+              f"{float((out - ref).abs().max())}")
+        # every head's page read once, the f32 rows written once
+        bytes_moved = kvh * mb.PS * r + kvh * rows * r * 4
+        bms, by = bound(bytes_moved, 0, PEAK_BF16)
+        cases.append(report("page_read", dict(
+            case=f"{what} {tuple(cache.shape)} page {mb.PS} rows -> f32 "
+            f"[{kvh}, {rows}, {r}], {n_chunks} chunks of {chunk_rows} rows "
+            f"a head ({kvh * n_chunks} CTAs)", path="microbench",
+            chunks=n_chunks, chunk_rows=chunk_rows,
+            max_abs_err=0.0, tol="exact", ms=timer.ms(kern),
+            plain_ms=timer.ms(plain, iters=5),
+            library_ms=timer.ms(lambda cache=cache, rows=rows:
+                                cache[:, :rows].float(), iters=5),
+            bound_ms=bms, bound_by=by)))
+    c = cases[0]
+    log(f"[kernel] page_read at the microbench: {c['ms']:.4f} ms with one "
+        f"bulk copy a chunk over {mb.KVH * c['chunks']} CTAs; "
+        f"{K5_EARLIER_MS} ms in the first design (one CTA a head); launch "
+        f"floor {floor['empty_launch_ms']:.4f} ms, bound "
+        f"{c['bound_ms']:.5f} ms, on {CARD[0]}")
+    del big, small
     torch.cuda.empty_cache()
-    return [case]
+    return cases
 
 
 def w4a8_cases(torch, timer, qk, quant_ops):
@@ -1622,6 +1701,7 @@ def microbench(torch, kernels, name_limit):
 # ------------------------------------------------------------ the tools
 
 TOOLS = "ppl.llm.serving_tpu_torch.tools."
+SAMPLES = "ppl.llm.serving_tpu_torch.samples."
 # the bench's gate: these kernels launched over its measured waves
 BENCH_LAUNCHED = ("paged_decode_attention", "paged_prefill_attention",
                   "i8i8_matmul")
@@ -1653,17 +1733,18 @@ def run_tree(cmd, timeout, env=None):
     return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
-def run_tool(args, timeout, env=None):
-    """``python -m`` one tool of the port (:func:`run_tree`)."""
-    return run_tree([sys.executable, "-m", TOOLS + args[0], *args[1:]],
+def run_tool(args, timeout, env=None, package=TOOLS):
+    """``python -m`` one tool (or sample) of the port
+    (:func:`run_tree`)."""
+    return run_tree([sys.executable, "-m", package + args[0], *args[1:]],
                     timeout, env)
 
 
-def tool(label, args, timeout, env=None):
+def tool(label, args, timeout, env=None, package=TOOLS):
     """Run one tool as a user does (:func:`run_tool`); its output is
     logged line by line and returned. A non-zero exit fails the phase."""
     t0 = time.perf_counter()
-    proc = run_tool(args, timeout, env)
+    proc = run_tool(args, timeout, env, package)
     for line in proc.stdout.splitlines():
         log(f"[{label}] {line}")
     if proc.returncode:
@@ -1700,8 +1781,9 @@ def tools_phase(name_limit, tmp):
     and T=32; the KV-append microbench; bench_cold_start at TinyLlama
     widths (1 layer) with the warm-up manifest
     (:func:`cold_start_manifest`); the host-turnaround microbench; the
-    host allocators' line (:func:`host_allocators`). Returns the benches'
-    records, whose launches join the kernels line's
+    host allocators' line (:func:`host_allocators`); the library-embedding
+    sample (``samples.embed_serving``, the demo model, 16 tokens on cuda).
+    Returns the benches' records, whose launches join the kernels line's
     ``launches_by_path``."""
     import os
     out = {}
@@ -1733,6 +1815,11 @@ def tools_phase(name_limit, tmp):
           f"microbench_tunnel: not a card run: {tunnel}")
     out["microbench_tunnel"] = tunnel
     host_allocators(name_limit)
+    # the library-embedding sample as a user runs it: the demo model
+    lines = tool("samples embed_serving", ["embed_serving"], 300,
+                 package=SAMPLES).splitlines()
+    check(lines[-1:] == ["16 tokens on cuda"],
+          f"embed_serving: not 16 tokens on cuda: {lines[-1:]}")
     return out
 
 
@@ -4195,10 +4282,12 @@ def main():
                 elif "registers" in line or "spill" in line:
                     log(f"[build] {src} {fn}: {line.strip()}")
         tensor_core_check()
+        bulk_copy_check()
 
         timer = Timer(torch)
         results = {name: [] for name in kernels.WRAPPERS}
         t0 = time.perf_counter()
+        floor = launch_floor(torch, timer)
         for widths, quantized, label, batches, which in (
                 (TINY, False, "tinyllama", (8, 64), 3),
                 (LLAMA7B, True, "llama2-7b int8-kv", (8,), 4),
@@ -4245,7 +4334,22 @@ def main():
                                                  quant_ops, widths, label, ts)
         results["w4a8_matmul"] = w4a8_cases(torch, timer, quant_matmul,
                                             quant_ops)
-        results["page_read"] = page_read_cases(torch, timer, cache_read)
+        results["page_read"] = page_read_cases(torch, timer, cache_read,
+                                               floor)
+        # the canonical path's widths: LLaMA-2-7B i8i8 over int8 KV at its
+        # decode buckets 32 and 64; and the b64 bench's tile at TinyLlama
+        ts = time.perf_counter()
+        results["paged_decode_attention"] += decode_cases(
+            torch, timer, paged_attention, attn_ops, kv_cache, F, LLAMA7B,
+            True, (32, 64), "llama2-7b int8-kv")
+        torch.cuda.empty_cache()
+        for widths, label, tokens in ((LLAMA7B, "llama2-7b", (32, 64)),
+                                      (TINY, "tinyllama", (64,))):
+            results["i8i8_matmul"] += i8i8_cases(
+                torch, timer, quant_matmul, quant_ops, widths, label, tokens)
+        log(f"[phase 3] the canonical path's rows (K1 7B int8 KV B=32/64, "
+            f"K3 7B T=32/64, K3 TinyLlama T=64): "
+            f"{time.perf_counter() - ts:.1f} s")
         del timer
         torch.cuda.empty_cache()
         log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
@@ -4445,6 +4549,7 @@ def main():
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             case=c["case"], n_cases=len(cases),
+            launch_floor_ms=floor["empty_launch_ms"],
             **({"splits": c["splits"]} if "splits" in c else {})))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,5 +1,6 @@
 // Inline PTX shared by the kernels of this directory: cp.async copies into
-// shared memory, ldmatrix fragment loads, the int8 (k32 and k16) and bf16
+// shared memory, Hopper's bulk asynchronous copy completing on an
+// mbarrier, ldmatrix fragment loads, the int8 (k32 and k16) and bf16
 // tensor-core mma.sync shapes, and the shared-memory limit raised once per
 // size and device.
 //
@@ -46,6 +47,53 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Hopper's bulk asynchronous copy (cp.async.bulk, the copy engine the TMA
+// drives) and the shared-memory barrier it completes on (PTX ISA,
+// "Data Movement and Conversion Instructions: cp.async.bulk" and
+// "mbarrier"). One thread issues a copy of any multiple of 16 bytes; the
+// barrier counts the bytes landed as transactions, so a wait on its phase
+// returns once the arrivals and all the expected bytes are in. K5 is built
+// on these; the wgmma tiles of K3's and K4's prefill paths are to feed
+// their shared-memory rings with the same four calls.
+
+// set up the barrier at `bar` for `count` arrivals a phase (one thread),
+// then make it visible to the copy engine before any copy names it
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival on `bar` that also expects `bytes` more transaction bytes
+// in the current phase (tx-count < 2^20 a phase)
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// spin until the phase of `bar` with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the bulk copy, counted on `bar` as they land
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // four 8x8 b16 matrices; lane l gives the row address of matrix l / 8,

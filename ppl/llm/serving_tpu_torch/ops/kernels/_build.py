@@ -16,7 +16,8 @@ library. A build writes to a temporary name and renames it into place,
 and the compiler's ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside the library as ``<name>.ptxas.txt``.
 :func:`sass_counts` counts chosen instructions (the tensor cores'
-``IMMA``, ``HMMA``) per kernel of a built library; :func:`sm_count`
+``IMMA``, ``HMMA``; the bulk copy's ``UBLKCP``) per kernel of a built
+library, from :func:`sass_listing`; :func:`sm_count`
 reads the device's SM count for the launch plans.
 Every ``nvcc`` run is logged with its seconds (``nvcc built <library> in
 <s> s``) and kept in :data:`build_seconds`.
@@ -167,13 +168,17 @@ def parse_sass_counts(sass: str, ops: Iterable[str]) -> Dict[str, Dict[str, int]
     return counts
 
 
+def sass_listing(name: str) -> str:
+    """``cuobjdump -sass`` of the built library of source ``name``."""
+    (path,) = build([name])
+    return subprocess.run([find_cuobjdump(), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def sass_counts(name: str, ops: Iterable[str] = ("IMMA", "HMMA")
                 ) -> Dict[str, Dict[str, int]]:
     """``parse_sass_counts`` of the built library of source ``name``."""
-    (path,) = build([name])
-    out = subprocess.run([find_cuobjdump(), "-sass", str(path)],
-                         capture_output=True, text=True, check=True)
-    return parse_sass_counts(out.stdout, ops)
+    return parse_sass_counts(sass_listing(name), ops)
 
 
 _SM_COUNT: Dict[object, int] = {}

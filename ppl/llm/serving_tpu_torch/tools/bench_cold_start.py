@@ -24,13 +24,17 @@ each nvcc run the server logged (none on a warm start or on the CPU),
 ``prewarmed`` (the manifest's keys warmed up before listening),
 ``manifest`` (the server's ``manifest_stats``: keys, live, captured,
 seconds, ...), ``prewarm_before_listening``, ``manifest_keys`` (the
-file's program keys after the phase) and the probe's ``eager_visits``
-and ``eager_manifest_visits`` (its dispatches with no graph to replay,
-and those of keys the manifest warmed up), which the server prints when
-it stops (SIGINT; its process group is killed if it does not stop, never
-a name pattern). ``manifest_keys`` at the top: the program keys of the
-manifest after both phases (the JAX tool reports the length of the
-file's JSON object there, always 1).
+file's program keys after the phase) and the probe's ``eager_visits``,
+``eager_manifest_visits`` and ``eager_new_visits`` (its dispatches with
+no graph to replay, those of keys the manifest warmed up, and those of
+keys new in this phase) and ``new_keys`` (the keys the probe met that
+the server did not hold before), which the server prints when it stops
+(SIGINT; its process group is killed if it does not stop, never a name
+pattern). The probe reads its stream to the end, so both phases serve
+it whole and meet the same keys. ``manifest_keys``
+at the top: the program keys of the manifest after both phases (the
+JAX tool reports the length of the file's JSON object there, always
+1).
 
     python -m ppl.llm.serving_tpu_torch.tools.bench_cold_start \\
         --params params.json [--kv-cache-max-tokens N] [--device cpu] \\
@@ -84,7 +88,9 @@ def wait_listening(proc, logf: str, timeout: float):
 
 def first_token_latency(target: str, timeout: float) -> float:
     """Seconds from sending one probe request to its first streamed
-    token."""
+    token. The stream is read to its end: a probe cut after its first
+    token would be cancelled at a point the host's timing picks, and the
+    program keys it meets would vary from one phase to the next."""
     import grpc
 
     from ppl.llm.serving_tpu_torch.serving.proto import llm_pb2
@@ -93,11 +99,15 @@ def first_token_latency(target: str, timeout: float) -> float:
         id=1, prompt="cold start probe",
         stopping_parameters=llm_pb2.StoppingCriteriaParameters(
             max_new_tokens=8, ignore_eos_token=True))])
+    first = None
     with grpc.insecure_channel(target) as channel:
         t0 = time.perf_counter()
         for _ in make_stub(channel)(req, timeout=timeout):
-            return time.perf_counter() - t0
-    raise RuntimeError("stream closed without a token")
+            if first is None:
+                first = time.perf_counter() - t0
+    if first is None:
+        raise RuntimeError("stream closed without a token")
+    return first
 
 
 def nvcc_seconds(log: str) -> Dict[str, float]:
@@ -157,6 +167,7 @@ def run_phase(name: str, cmd: List[str], logf: str, timeout: float,
         log = f.read()
     rep = server_report(log)
     keys = rep["program_keys"] or {}
+    new = {tuple(k) for k in keys.get("new_keys", ())}
     return {"listen_s": round(t_listen, 2), "first_token_s": round(t_first, 3),
             "total_s": round(t_listen + t_first, 2),
             "nvcc_s": nvcc_seconds(log),
@@ -165,7 +176,11 @@ def run_phase(name: str, cmd: List[str], logf: str, timeout: float,
             "prewarm_before_listening": rep["prewarm_before_listening"],
             "manifest_keys": manifest_key_count(manifest),
             "eager_visits": keys.get("eager_visits"),
-            "eager_manifest_visits": keys.get("eager_manifest_visits")}
+            "eager_manifest_visits": keys.get("eager_manifest_visits"),
+            "eager_new_visits": sum(k[-1] for k in keys["eager_keys"]
+                                    if tuple(k[:-1]) in new)
+            if keys else None,
+            "new_keys": len(new) if keys else None}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -88,9 +88,17 @@ def test_cold_start_against_the_cpu_server(tmp_path, capsys):
         assert p["nvcc_s"] == {}
         # the probe's dispatches: all eager on the CPU
         assert p["eager_visits"] > 0
+        # every eager dispatch is of a key warmed up or met new here
+        assert (p["eager_manifest_visits"] + p["eager_new_visits"]
+                == p["eager_visits"])
     assert out["manifest_keys"] > 0
     assert out["cold"]["prewarmed"] == 0
     assert out["warm"]["prewarmed"] == out["manifest_keys"]
+    # the cold probe's keys make the manifest; the warm probe, served
+    # whole as the cold one was, meets no key that is not in it
+    assert out["cold"]["new_keys"] == out["cold"]["manifest_keys"] == out[
+        "manifest_keys"]
+    assert out["warm"]["new_keys"] == 0
     assert out["warm"]["prewarm_before_listening"]
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == out
     assert json.loads((tmp_path / "cold.json").read_text()) == out

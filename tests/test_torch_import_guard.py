@@ -8,9 +8,10 @@ the sentencepiece tokenizer, the eval tools and the measuring tools
 bench_cold_start, bench_canonical, microbench_tunnel), of these only
 bench_cold_start and bench_canonical (gRPC clients of the server) may
 load grpc, tensor parallelism (``parallel.*``: shardings, kernel_tp,
-multihost), the data-parallel replicas' channel (``serving.replicas``)
-and the native host runtime (``utils._native``), whose C++ source is the
-port's own file and which builds nothing at import either."""
+multihost), the data-parallel replicas' channel (``serving.replicas``),
+the library-embedding sample (``samples.embed_serving``) and the native
+host runtime (``utils._native``), whose C++ source is the port's own file
+and which builds nothing at import either."""
 
 import os
 import subprocess
@@ -46,6 +47,8 @@ missing = {m for m in checkpoints if port.__name__ + "." + m not in names}
 assert not missing, missing
 missing = {m for m in MEASURING if port.__name__ + "." + m not in names}
 assert not missing, missing
+# the library-embedding sample
+assert port.__name__ + ".samples.embed_serving" in names
 # tensor parallelism over torch.distributed
 parallel = {"parallel", "parallel.shardings", "parallel.kernel_tp",
             "parallel.multihost"}

@@ -1,7 +1,7 @@
 """Host-side pieces of the port's kernels that run without a card: K3's
 and K4's split-K planners, K4's x16 nibble unpack and rescale identity
-(in numpy), K1's context-split plan, the build's cache key (sources
-and shared headers) and the SASS instruction counter that
+(in numpy), K1's context-split plan, K5's chunk plan, the build's cache
+key (sources and shared headers) and the SASS instruction counter that
 ``chip_smoke.py`` reads."""
 
 import numpy as np
@@ -10,6 +10,7 @@ import torch
 
 from ppl.llm.serving_tpu_torch.ops import quant as quant_ops
 from ppl.llm.serving_tpu_torch.ops.kernels import _build
+from ppl.llm.serving_tpu_torch.ops.kernels import cache_read
 from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention as pk
 from ppl.llm.serving_tpu_torch.ops.kernels import quant_matmul as qk
 
@@ -180,6 +181,47 @@ def test_decode_splits_at_served_sizes():
         [(0, 1), (1, 2), (2, 3), (3, 4)] + [(4, 4)] * 5)
 
 
+@pytest.mark.parametrize("kvh,ps,r", [(32, 128, 256), (4, 128, 256),
+                                      (40, 128, 256), (1100, 16, 32),
+                                      (1, 16, 32), (2, 1024, 256),
+                                      (1, 128, 4096), (2000, 1024, 256)])
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_page_read_chunks_cover_the_page(kvh, ps, r, num_sms):
+    """K5's chunks: whole rows covering the page in order, none empty,
+    each within one block's shared memory (less the barrier); the
+    smallest chunks whose CTAs stay within CTAS_PER_SM a SM, unless one
+    chunk a head or the shared memory needs more."""
+    chunk_rows, n = cache_read.plan_page_read(kvh, ps, r, num_sms)
+    chunks = [(i * chunk_rows, min(ps, (i + 1) * chunk_rows))
+              for i in range(n)]
+    assert chunks[0][0] == 0 and chunks[-1][1] == ps
+    assert all(lo < hi for lo, hi in chunks)
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert chunk_rows * r <= cache_read._SMEM_MAX
+    assert cache_read._SMEM_MAX + 16 == 227 * 1024
+    # the chunks memory forces, and the most that the SMs hold at
+    # CTAS_PER_SM each
+    fits = -(-ps // (cache_read._SMEM_MAX // r))
+    target = min(ps, max(1, cache_read.CTAS_PER_SM * num_sms // kvh, fits))
+    assert n <= target and chunk_rows == -(-ps // target)
+
+
+def test_page_read_plan_at_the_microbench_geometry():
+    """The 7B microbench page (32 heads, 128 rows of 256 bytes) on an
+    H100 goes as 32 chunks of 4 rows (1 kB) a head: 1,024 CTAs, 8 a SM,
+    not 32; Baichuan-13B's 40 heads give a page that is no whole number
+    of chunks (25 of 5 rows, a last of 3); with 8 heads a SM or more,
+    one chunk a head."""
+    assert cache_read.CTAS_PER_SM == 8
+    assert cache_read.plan_page_read(32, 128, 256, 132) == (4, 32)
+    assert cache_read.plan_page_read(40, 128, 256, 132) == (5, 26)
+    assert 26 * 5 - 128 == 2                    # the last chunk: 3 rows
+    assert cache_read.plan_page_read(1056, 128, 256, 132) == (128, 1)
+    assert cache_read.plan_page_read(1100, 16, 32, 132) == (16, 1)
+    # a 256 kB page needs two chunks whatever the SMs
+    assert cache_read.plan_page_read(2000, 1024, 256, 132) == (512, 2)
+
+
 def _src_tree(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
@@ -230,15 +272,22 @@ SASS = """
         /*0010*/               @P1 HMMA.16816.F32.BF16 R16, R8, R14, R16 ;    /* 0x0000000e0810723c */
         /*0020*/                   IMMAX R0, R1 ;                             /* 0x0000000001007210 */
         /*0030*/                   EXIT ;                                     /* 0x000000000000794d */
+		..........
+		Function : _ZN12_GLOBAL__N_116page_read_kernelEPKaPfxiiiii
+        /*0000*/                   UBLKCP.S.G [UR8], [UR4], UR6 ;             /* 0x00000008040073ba */
+        /*0010*/              @!UP0 UBLKCP.S.G [UR8], [UR4], UR6 ;            /* 0x00000008040073ba */
+        /*0020*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR8], R3 ;  /* 0x00000003ff0075a7 */
 """
 
 
 def test_parse_sass_counts():
-    counts = _build.parse_sass_counts(SASS, ("IMMA", "HMMA"))
-    dec, tc = sorted(counts)
+    counts = _build.parse_sass_counts(SASS, ("IMMA", "HMMA", "UBLKCP"))
+    k5, dec, tc = sorted(counts)
     assert "i8i8_decode_kernel" in dec and "paged_prefill_tc_kernel" in tc
-    assert counts[dec] == {"IMMA": 2, "HMMA": 0}
-    assert counts[tc] == {"IMMA": 0, "HMMA": 2}
+    assert "page_read_kernel" in k5
+    assert counts[dec] == {"IMMA": 2, "HMMA": 0, "UBLKCP": 0}
+    assert counts[tc] == {"IMMA": 0, "HMMA": 2, "UBLKCP": 0}
+    assert counts[k5] == {"IMMA": 0, "HMMA": 0, "UBLKCP": 2}
 
 
 def test_mma_ceiling_needs_a_card():

@@ -523,14 +523,25 @@ def test_alibi_slopes_are_checked(cuda):
                                   alibi=torch.ones(4))
 
 
-@pytest.mark.parametrize("ps,r,rows", [(128, 256, 8), (16, 32, 1),
-                                       (256, 256, 8)])
-def test_page_read_kernel_matches_plain(cuda, ps, r, rows):
-    """K5 exact; 256 x 256 bytes take more than the default 48 kB of
+@pytest.mark.parametrize("kvh,ps,r,rows", [
+    (4, 128, 256, 8), (4, 16, 32, 1), (4, 256, 256, 8),
+    (32, 128, 256, 8),            # the microbench: 32 chunks of 4 rows
+    (32, 128, 256, 128),          # rows = PS: every chunk converts
+    (40, 128, 256, 8),            # 26 chunks of 5 rows, the last of 3
+    (40, 128, 256, 128),          # ... and every one of them converts
+    (1100, 16, 32, 8),            # 8 heads a SM or more: one chunk a head
+    (1056, 128, 256, 128),        # one 32 kB chunk a head, all converted
+    (1056, 256, 256, 256)])       # a 64 kB chunk: past the default 48 kB
+def test_page_read_kernel_matches_plain(cuda, kvh, ps, r, rows):
+    """K5 exact at its chunk plans: one chunk a head, many, a last chunk
+    shorter than the others, and a chunk above the default 48 kB of
     shared memory."""
     g = torch.Generator(device=cuda).manual_seed(27)
-    cache = torch.randint(-128, 128, (4, 3 * ps, r), generator=g,
+    cache = torch.randint(-128, 128, (kvh, 3 * ps, r), generator=g,
                           device=cuda, dtype=torch.int8)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, n_chunks = cache_read.plan_page_read(kvh, ps, r, sms)
+    assert (n_chunks == 1) == (kvh >= cache_read.CTAS_PER_SM * sms)
     before = cache_read.page_read.launches
     out = cache_read.page_read(cache, rows=rows, page_size=ps)
     torch.cuda.synchronize()
@@ -544,6 +555,10 @@ def test_page_read_kernel_checks_its_arguments(cuda):
     with pytest.raises(ValueError, match="rows"):
         cache_read.page_read(torch.zeros((2, 64, 256), dtype=torch.int8,
                                          device=cuda))
+    # a row wider than one block's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        cache_read.page_read(torch.zeros((1, 1, 227 * 1024), dtype=torch.int8,
+                                         device=cuda), rows=1, page_size=1)
 
 
 def _i8i8_operands(dev, d, n, fused, seed):

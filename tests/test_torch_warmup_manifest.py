@@ -33,7 +33,10 @@ from ppl.llm.serving_tpu_torch.tools import llm_server
 from test_torch_tp_server import ARGV, START_S, ServerProcess, stream
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STOP_S = 60
+# a server's stop may itself take 60 s to end its group
+# (multihost.shutdown) and 60 s a worker rank (stop_ranks) before it
+# gives up, so the test waits past those
+STOP_S = 180
 REPORT = "[INFO] program keys while serving: "
 
 # program keys (n_steps, feed, bd, bp, qp, kvp, greedy, cont)
