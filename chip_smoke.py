@@ -50,8 +50,10 @@ records its program keys, and a restart that captures them.
    decode rows give each row pages of its own, as serving does; the
    canonical path's widths: K1 at LLaMA-2-7B over int8 KV at B=32 and
    64, K3 at 7B widths at T=32 and 64 and at TinyLlama's at T=64 (the
-   b64 bench); K1's rows print the context splits S of their grid, K3's
-   and K4's split-K rows their pieces S, each repeatable bit for bit;
+   b64 bench), and at 13B widths at T=8, 16 and 64 (the served decode
+   bucket) as well as the prefill sizes; K1's rows print the context
+   splits S of their grid, K3's their tile and split-K pieces S, K4's
+   split-K rows their pieces S, each repeatable bit for bit;
    K2 also at the NLL forward's row (one row of 1,024 tokens at start 0,
    bf16 and int8 KV; yardstick SDPA with is_causal);
 4. step cross-checks: 2-layer models at full width, same weights on cuda
@@ -882,10 +884,12 @@ def prefill_cases(torch, timer, pk, attn_ops, kv_cache, F, widths,
 def i8i8_cases(torch, timer, qk, quant_ops, cfg, label, ts=(8, 1024),
                weights=None):
     """K3 at the widths of ``cfg`` (or at ``weights``, [(name, float
-    shape)]): each weight at a decode (T=8) and prefill (T=1024, and 4,096
-    for the 13B prefill step) sizes, bf16 out, exact up to one bf16
-    rounding; f32 out equal to the plain version bit for bit; at decode
-    sizes (split-K) two runs equal bit for bit."""
+    shape)]): each weight at each T of ``ts`` (decode sizes, T=8 and up to
+    the 64-row decode bucket; prefill sizes, T=1024, and 4,096 for the 13B
+    prefill step), bf16 out, exact up to one bf16 rounding; f32 out equal
+    to the plain version bit for bit; two runs equal bit for bit. Each row
+    names the tile ``k3_tile`` routes it to and, on the decode tile, its
+    split-K pieces S."""
     d, inter = cfg["hidden_dim"], cfg["intermediate_dim"]
     hq, kvh = cfg["num_heads"], cfg["num_kv_heads"]
     hd = d // hq
@@ -959,12 +963,16 @@ def i8i8_cases(torch, timer, qk, quant_ops, cfg, label, ts=(8, 1024),
                            + c * t * n * 2)
             ops = 2 * t * k_dim * c * n
             bms, by = bound(bytes_moved, ops, PEAK_INT8)
+            tile = qk.k3_tile(t, n)
+            pieces = {} if tile == "prefill" else {"splits": qk.plan_split_k(
+                t, k_dim, n, c, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)[0]}
             cases.append(report("i8i8_matmul", dict(
-                case=f"{label} {name} T={t} D={k_dim} N={c}x{n} bf16"
-                f"{lib_note}", path=label,
+                case=f"{label} {name} T={t} D={k_dim} N={c}x{n} bf16, "
+                f"{tile} tile{lib_note}", path=label, tile=tile,
                 max_abs_err=err, tol=tol, ms=timer.ms(kern),
                 plain_ms=timer.ms(plain, iters=5), library_ms=lib_ms,
-                bound_ms=bms, bound_by=by)))
+                bound_ms=bms, bound_by=by, **pieces)))
         del wq, ws, w2, w2_cm
         torch.cuda.empty_cache()
     return cases
@@ -1120,7 +1128,8 @@ def w4a8_cases(torch, timer, qk, quant_ops):
                     ms=timer.ms(kern), plain_ms=timer.ms(plain, iters=5),
                     library_ms=None, orientation_int_mm_ms=orient,
                     bound_ms=bms, bound_by=by,
-                    **({"splits": splits} if t <= qk.DECODE_MAX_T else {}))))
+                    **({"splits": splits}
+                       if t <= qk.W4_DECODE_MAX_T else {}))))
             del ref, xq_lib
         del wp, ws, wu_cm
         torch.cuda.empty_cache()
@@ -4329,7 +4338,7 @@ def main():
         torch.cuda.empty_cache()
         for widths, label, ts in ((TINY, "tinyllama", (8, 1024)),
                                   (BAICHUAN13B, "baichuan-13b",
-                                   (8, 1024, 4096))):
+                                   (8, 16, 64, 1024, 4096))):
             results["i8i8_matmul"] += i8i8_cases(torch, timer, quant_matmul,
                                                  quant_ops, widths, label, ts)
         results["w4a8_matmul"] = w4a8_cases(torch, timer, quant_matmul,
@@ -4529,10 +4538,12 @@ def main():
             "ppl/llm/serving_tpu/tools/microbench_scatter_7b.py:133"),
     }
     # launch counts kept apart: K1's block-tail launches, K1's and K2's
-    # ALiBi launches
+    # ALiBi launches, K3's by tile
     apart = {"paged_decode_attention": ("paged_decode_attention_tail",
                                         "paged_decode_attention_alibi"),
-             "paged_prefill_attention": ("paged_prefill_attention_alibi",)}
+             "paged_prefill_attention": ("paged_prefill_attention_alibi",),
+             "i8i8_matmul": tuple(f"i8i8_matmul_{tile}"
+                                  for tile in quant_matmul.TILES)}
     entries = []
     for name, cases in results.items():
         prefix, path = main_case[name]

@@ -55,8 +55,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // "mbarrier"). One thread issues a copy of any multiple of 16 bytes; the
 // barrier counts the bytes landed as transactions, so a wait on its phase
 // returns once the arrivals and all the expected bytes are in. K5 is built
-// on these; the wgmma tiles of K3's and K4's prefill paths are to feed
-// their shared-memory rings with the same four calls.
+// on these, and K3's decode tile on their tensor form (a box of
+// a tensor map, swizzled as it lands) with a ring of full and empty
+// barriers.
 
 // set up the barrier at `bar` for `count` arrivals a phase (one thread),
 // then make it visible to the copy engine before any copy names it
@@ -94,6 +95,49 @@ __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// one plain arrival on `bar` (release at CTA scope: this thread's earlier
+// reads of the slot are done before the producer may refill it)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// The tensor form of the bulk copy (the TMA proper): one box of the tensor
+// map at `map` (a __grid_constant__ kernel parameter), its corner at the
+// given coordinates (innermost first), lands at `dst` in the map's swizzle
+// and counts its whole box on `bar`, elements outside the tensor as zeros
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// Programmatic dependent launch (PTX griddepcontrol): a kernel launched
+// with the programmatic stream serialization attribute may start while the
+// kernel ahead of it in the stream still runs, once every block of that
+// kernel has called launch_dependents (or ended); grid_dependency_wait
+// then blocks the calling thread until that kernel has ended and its
+// memory operations are visible. Without the attribute both are no-ops.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // four 8x8 b16 matrices; lane l gives the row address of matrix l / 8,

@@ -16,51 +16,84 @@
 // w [C, D, N], scale [C, N] -> [C, T, N] with gridDim.z = C. The wrapper
 // guarantees D % 4 == 0 and N % 4 == 0 and nothing more.
 //
-// What bounds it on an H100: at decode sizes (T <= 16) bytes -- the int8
-// weight is read once, D*N bytes per call, against 2*T*D*N operations;
-// at prefill sizes (T ~ 1024 and up) operations, against the 1,979 TOP/s
-// of the int8 tensor cores.
+// What bounds it on an H100: up to the served 64-row decode bucket bytes
+// -- the int8 weight is read once, D*N bytes per call, against 2*T*D*N
+// operations: at T = 64 about 128 operations a weight byte, a third of
+// the ridge of the mma.sync ceiling (1,290 TOP/s) over 3.35 TB/s -- so the
+// tile's job is to keep the weight streaming at the card's bandwidth into
+// every SM; at prefill sizes (T ~ 1024 and up) operations, against the
+// 1,979 TOP/s of the int8 tensor cores.
 //
 // Design (the quantize pass, then one of two GEMM tiles on the int8
-// tensor cores, mma.sync.m16n8k32.s8 with exact s32 sums):
+// tensor cores, mma.sync.m16n8k32.s8 with exact s32 sums), routed by T
+// alone (the wrapper's k3_tile):
 // - Quantize: one block per row (absmax reduction, int8 row, f32 scale).
 //   The int8 rows get a stride rounded up to 128 bytes, zero past D, so
-//   every activation tile is whole and 16-byte aligned.
+//   every activation tile is whole and 16-byte aligned. For the decode
+//   tile each 16-byte group is written in that tile's k order (k16).
 // - The weight stays [D, N] with N contiguous (the JAX contract), but an
-//   int8 MMA wants both operands k-contiguous. A weight tile lands in
-//   shared memory N-major by 16-byte cp.async; a thread reads the 4-byte
-//   words of rows k..k+3 at columns 4j..4j+3 and turns them k-major with
-//   a 4x4 __byte_perm transpose, which yields the k-words of columns 4j,
-//   4j+1, 4j+2, 4j+3 at once. So the tile's columns are permuted: n8
-//   fragment i holds the columns 4j + i (j = 0..7) of a 32-column span,
-//   one transpose feeds four fragments, and the epilogue puts each sum
-//   back at 4j + i. The 16-byte chunks of a row are XOR-swizzled by
-//   (k / 4) % 4 so the 32 lanes' words fall in 32 banks.
-// - Prefill (T > 16): a 128 x 128 CTA tile on 8 warps (64 x 32 each),
-//   two CTAs an SM (128 registers a thread), 128 bytes of k per stage, a
-//   3-stage cp.async ring in 96 KB of dynamic shared memory. Activations
-//   are the A operand, read by plain 4-byte shared loads (chunks swizzled
-//   by row % 8: conflict-free; unlike volatile ldmatrix the compiler can
-//   move them ahead of earlier MMAs), the weight the B operand. CTAs take
-//   the (M, N) tiles in groups of 8 M tiles, M fastest, so the CTAs in flight
-//   share weight tiles through L2 (in N-fastest order each weight byte
-//   came from DRAM once per 128 tokens). Masked edges: rows past T and
-//   weight rows past D or columns past N are copied as zeros; output
-//   columns go out four at a time (N % 4 == 0).
-// - Decode (T <= 16): byte-bound, so the operands swap: the weight is the
-//   A (m16) side, through the same transpose, and the tokens the n8 side
-//   (one or two n8 tiles, no padding to 16 or 32 rows). A CTA of 4 warps
-//   streams 128 weight columns x 64 rows per stage (16-byte cp.async)
-//   through a 4-stage ring; its warps split the columns in two and each
-//   stage's k in two, and add their halves in shared memory at the end.
-//   No tile shape tried (256 x 32 stages, an 8-deep ring, more pieces)
-//   streamed faster. Split-K: the host
-//   planner cuts K into pieces of whole 64-row stages so that every
-//   weight gives at least two CTAs per SM. Pieces add int32 partial sums
-//   with atomicAdd into a zeroed workspace -- integer addition is
-//   order-free, so every run gives the same bits -- and the last CTA of
-//   a column tile to finish (a counter in the same workspace) applies
-//   the epilogue. One piece writes the output directly.
+//   int8 MMA wants both operands k-contiguous, so each tile turns the
+//   weight k-major on its way from shared memory to registers.
+// - Decode (T <= 64, N % 16 == 0): the weight is the MMA's A (m16) side
+//   and the tokens its n8 side (up to eight n8 tiles: T rounded up to 8
+//   only). A CTA takes 256 weight columns and a piece of K:
+//   * One producer warp keeps a 4-slot ring of 20 kB stages loading with
+//     the TMA (cp.async.bulk.tensor, an mbarrier a slot): two boxes of 64
+//     rows x 128 columns of the weight (a 3-D tensor map over [C, D, N],
+//     128-byte swizzle, rows past D read as zeros) and one of 64 bytes x
+//     NT*8 tokens of the activations (64-byte swizzle, tokens past T
+//     zeros). Four consumer warps, 64 columns each, free a slot once read.
+//     So each CTA keeps 80 kB in flight, and no thread spends registers
+//     or instructions on addresses.
+//   * The A fragments come from transposed ldmatrix loads of 8 rows x 16
+//     bytes: a lane gets the byte pairs (k 2*tig, 2*tig + 1) x (columns
+//     2g, 2g + 1) of a matrix, and one byte_perm of two matrices 8 rows
+//     apart gives the k-word (2*tig, 2*tig + 1, 8 + 2*tig, 9 + 2*tig) of
+//     one column. The MMA adds over k in any order as long as A and B
+//     agree, and the quantize pass stores each 16-byte group in that
+//     order, so the B fragments are plain ldmatrix loads. Under the
+//     swizzles each phase's 8 rows fall in 32 banks.
+//   * The activations are not re-read once per 128 columns: the column
+//     tile is 256 wide, so a stage's 4 kB activation box serves 16 kB of
+//     weight (a quarter more traffic from L2, not a half). A wider tile,
+//     or a CTA keeping its activation piece over several column tiles,
+//     would leave wo and down (20 column tiles of 256 at 13B) fewer CTAs
+//     than SMs under the cluster's 8 pieces.
+//   * Split-K: the host planner (plan_split_k) cuts K into pieces of
+//     whole 64-row stages, as even as stages allow: the fewest that give
+//     every SM a CTA (at 13B wo and down 7, wqkv 3, gate|up 2), at most 8.
+//     The pieces of a column tile are one thread block cluster (1,
+//     pieces, 1): each writes its int32 sums [NT*8 tokens][256 columns]
+//     into its own shared memory (the ring, by then free), the cluster
+//     syncs, and each CTA adds a slice of the tile's (token, 4-column)
+//     groups over every piece's shared memory (distributed shared memory)
+//     and applies the epilogue. Integer sums are exact, so every run,
+//     eager or replayed in a CUDA graph, gives the same bits; nothing is
+//     zeroed per call and no workspace or counter outlives a launch.
+//   * Programmatic dependent launch: the tile may start while the
+//     quantize pass ahead of it runs; its first stages' weight boxes go
+//     out at once, its activation boxes and token scales wait for the
+//     pass to end (griddepcontrol.wait).
+// - Prefill (T > 64, or N % 16 > 0): a 128 x 128 CTA tile on 8 warps (64
+//   x 32 each), two CTAs an SM (128 registers a thread), 128 bytes of k
+//   per stage, a 3-stage cp.async ring in 96 KB of dynamic shared memory.
+//   Activations are the A operand, read by plain 4-byte shared loads
+//   (chunks swizzled by row % 8: conflict-free; unlike volatile ldmatrix
+//   the compiler can move them ahead of earlier MMAs), the weight the B
+//   operand: a weight tile lands in shared memory N-major by 16-byte
+//   cp.async; a thread reads the 4-byte words of rows k..k+3 at columns
+//   4j..4j+3 and turns them k-major with a 4x4 __byte_perm transpose,
+//   which yields the k-words of columns 4j, 4j+1, 4j+2, 4j+3 at once. So
+//   the tile's columns are permuted: n8 fragment i holds the columns
+//   4j + i (j = 0..7) of a 32-column span, one transpose feeds four
+//   fragments, and the epilogue puts each sum back at 4j + i. The 16-byte
+//   chunks of a row are XOR-swizzled by (k / 4) % 4 so the 32 lanes'
+//   words fall in 32 banks. CTAs take the (M, N) tiles in groups of 8 M
+//   tiles, M fastest, so the CTAs in flight share weight tiles through L2
+//   (in N-fastest order each weight byte came from DRAM once per 128
+//   tokens). Masked edges: rows past T and weight rows past D or columns
+//   past N are copied as zeros; output columns go out four at a time
+//   (N % 4 == 0).
 // - The epilogue is float(acc) * (x_scale[t] * w_scale[n]) in exactly
 //   that order, so the f32 output equals the plain version bit for bit.
 //
@@ -118,6 +151,9 @@
 //   bits on every run and in a CUDA graph replay -- and puts its counter
 //   back to zero, so the counters need no memset per call.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -127,6 +163,7 @@
 namespace {
 
 using namespace ppl_ptx;
+namespace cg = cooperative_groups;
 
 constexpr int kQuantThreads = 512;
 
@@ -146,14 +183,35 @@ template <> struct Quad<__nv_bfloat16> {
   }
 };
 
+// The byte of a 16-byte group that holds value k (0..15) of the group in
+// the decode tile's order: word w (its B fragment word tig = w)
+// holds values 2w, 2w + 1, 8 + 2w, 9 + 2w, the k order of the A words
+// that tile's transposed ldmatrix loads give
+__host__ __device__ constexpr int dc_k16_offset(int k) {
+  return k < 8 ? 4 * (k >> 1) + (k & 1) : 4 * ((k - 8) >> 1) + 2 + (k & 1);
+}
+
+// quad i of a row (values 4i..4i+3) into the k16 order: two 16-bit halves
+__device__ __forceinline__ void store_k16(int8_t* row, int i, uint32_t w) {
+  const int k = 4 * (i & 3);
+  int8_t* grp = row + 16 * (i >> 2);
+  *reinterpret_cast<uint16_t*>(grp + dc_k16_offset(k)) = (uint16_t)(w & 0xffffu);
+  *reinterpret_cast<uint16_t*>(grp + dc_k16_offset(k + 2)) = (uint16_t)(w >> 16);
+}
+
 // One block per row: absmax, scale = absmax / 127 (a division), then
-// q = clip(rint(x * (1 / scale)), -127, 127), four elements a load
+// q = clip(rint(x * (1 / scale)), -127, 127), four elements a load. With
+// `k16`, each 16-byte group of a row holds its 16 values in the order the
+// decode tile's MMA fragments read them (see dc_k16_offset).
 template <typename T>
 __global__ void __launch_bounds__(kQuantThreads) quantize_rows_kernel(
     const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs,
-    int D, int ld) {
+    int D, int ld, int k16) {
   using V = typename Quad<T>::V;
   __shared__ float red[kQuantThreads / 32];
+  // K3's decode tile, launched behind this pass, may start streaming
+  // its weight now: it waits for these rows before it reads them
+  launch_dependents();
   const int t = blockIdx.x;
   const V* row = reinterpret_cast<const V*>(x + (size_t)t * D);
   const int nq = D / 4;
@@ -184,9 +242,17 @@ __global__ void __launch_bounds__(kQuantThreads) quantize_rows_kernel(
       const float q = fminf(fmaxf(rintf(v[j] * inv), -127.f), 127.f);
       w |= ((uint32_t)(int)q & 0xffu) << (8 * j);
     }
-    qrow[i] = w;
+    if (k16)
+      store_k16(xq + (size_t)t * ld, i, w);
+    else
+      qrow[i] = w;
   }
-  for (int i = nq + threadIdx.x; i < ld / 4; i += blockDim.x) qrow[i] = 0;
+  for (int i = nq + threadIdx.x; i < ld / 4; i += blockDim.x) {
+    if (k16)
+      store_k16(xq + (size_t)t * ld, i, 0u);
+    else
+      qrow[i] = 0;
+  }
   if (threadIdx.x == 0) xs[t] = scale;
 }
 
@@ -205,8 +271,9 @@ __device__ __forceinline__ void transpose4x4(int w0, int w1, int w2, int w3, int
 
 // ---------------------------------------------------------------- K3 tiles
 
-constexpr int kTileN = 128;      // weight columns per CTA (both tiles)
-constexpr int kDecodeMaxT = 16;  // T at or under this runs the decode tile
+constexpr int kTileN = 128;      // weight columns per box or CTA
+// K3's tiles, as ppl_i8i8_gemm's `tile` names them
+constexpr int kTilePrefill = 0, kTileDecode = 1;
 
 // Byte offset of 16-byte chunk `chunk` of row `kr` in a weight tile
 // (rows x kTileN bytes, N-major): the chunks of a row are XOR-
@@ -405,162 +472,320 @@ __global__ void __launch_bounds__(kPfThreads, 2) i8i8_prefill_kernel(
     }
 }
 
-// --- decode tile: 128 weight columns x NT*8 tokens, split-K
+// --- decode tile: 256 weight columns x NT*8 tokens, a TMA ring
+//     fed by one producer warp, split-K over a thread block cluster
 
-constexpr int kDcThreads = 128;
-constexpr int kDcBK = 64;               // contraction rows per stage
-constexpr int kDcStages = 4;                // depth of the cp.async ring
-constexpr int kDcWTile = kDcBK * kTileN;  // a stage's weight tile, bytes
-constexpr int kDcXStride = kDcBK + 16;  // x tile row: 64 bytes + 16 of pad
-constexpr int kDcXTile = 2 * 8 * kDcXStride;
-constexpr int kDcSmem = kDcStages * (kDcWTile + kDcXTile);  // 37 KB
+constexpr int kDcCols = 2 * kTileN;        // weight columns per CTA
+constexpr int kDcConsumers = 4;            // consumer warps, 64 columns each
+constexpr int kDcThreads = 32 * (kDcConsumers + 1);
+constexpr int kDcBK = 64;                  // contraction rows per stage
+constexpr int kDcStages = 4;               // depth of the ring
+constexpr int kDcBox = kDcBK * kTileN;     // one 128-column weight box, 8 KB
+constexpr int kDcMaxPieces = 8;            // the portable cluster size
+constexpr int kDcPitch = kDcCols * 4 + 16; // a token's partial sums, bytes
+constexpr int kDcMaxT = 64;
 
-// part: int32 sums [C, T, N] and done: one arrival counter per (c, column
-// tile), both zeroed by the caller, when K is cut into gridDim.y > 1
-// pieces of kchunk rows; both null for one piece.
-template <int NT, int VEC, typename TO>
-__global__ void __launch_bounds__(kDcThreads) i8i8_decode_kernel(
-    const int8_t* __restrict__ xq, int ldx, const float* __restrict__ xs,
-    const int8_t* __restrict__ w, const float* __restrict__ ws,
-    TO* __restrict__ out, int T, int D, int N, int kchunk,
-    int* __restrict__ part, int* __restrict__ done) {
-  extern __shared__ __align__(16) int8_t smem[];
-  __shared__ int last_piece;
-  const int c = blockIdx.z, tile = blockIdx.x;
-  const int n0 = tile * kTileN;
+template <int NT> __host__ __device__ constexpr int dc_xbox() {
+  return NT * 8 * kDcBK;                   // a stage's activation box
+}
+template <int NT> __host__ __device__ constexpr int dc_stage() {
+  return (2 * kDcBox + dc_xbox<NT>() + 1023) / 1024 * 1024;
+}
+template <int NT> __host__ __device__ constexpr int dc_smem() {
+  return kDcStages * dc_stage<NT>() + 1024;   // + the 1 KB alignment
+}
+
+// w_map: the weight [C, D, N] int8 as a 3-D tensor map, boxes of 128
+// columns x kDcBK rows in the 128-byte swizzle; x_map: the int8
+// activations [T, ldx] as a 2-D one, boxes of kDcBK bytes x NT*8 tokens in
+// the 64-byte swizzle. Launched as clusters of (1, gridDim.y, 1): the
+// gridDim.y pieces of K (kchunk rows each, whole stages) of one column
+// tile add their int32 sums in distributed shared memory.
+template <typename TO, int NT>
+__global__ void __launch_bounds__(kDcThreads, 2) i8i8_decode_kernel(
+    const __grid_constant__ CUtensorMap w_map,
+    const __grid_constant__ CUtensorMap x_map, const float* __restrict__ xs,
+    const float* __restrict__ ws, TO* __restrict__ out, int T, int D, int N,
+    int kchunk) {
+  extern __shared__ __align__(16) int8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kDcStages], empty[kDcStages];
+  constexpr int kStage = dc_stage<NT>();
+  static_assert(NT * 8 * kDcPitch <= kDcStages * kStage,
+                "the partial sums reuse the ring");
+  // the 128-byte swizzle repeats every 1024 bytes: boxes start on 1 KB
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int8_t* smem = smem_raw + (base - raw);
+  const int c = blockIdx.z, n0 = blockIdx.x * kDcCols;
   const int kb = blockIdx.y * kchunk, ke = min(D, kb + kchunk);
   const int ktiles = (ke - kb + kDcBK - 1) / kDcBK;
-  const int8_t* wc = w + (size_t)c * D * N;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wcol = warp & 1, wk = warp >> 1;  // 64-column half, 32-row half
-  const int g = lane >> 2, tig = lane & 3;
-
-  auto load_stage = [&](int kt) {
-    int8_t* w_t = smem + (kt % kDcStages) * (kDcWTile + kDcXTile);
-    int8_t* x_t = w_t + kDcWTile;
-    const int k0 = kb + kt * kDcBK;
-    load_wtile<VEC, kDcThreads, kDcBK>(w_t, wc, k0, ke, n0, N, tid);
-    for (int e = tid; e < NT * 8 * (kDcBK / 16); e += kDcThreads) {
-      const int t = e / (kDcBK / 16), ch = e % (kDcBK / 16);
-      cp_async16(smem_u32(x_t + t * kDcXStride + ch * 16),
-                 xq + (size_t)(t < T ? t : 0) * ldx + k0 + ch * 16,
-                 t < T ? 16 : 0);
-    }
-  };
-
-  int acc[4][NT][4];  // [permuted m16 fragment][n8 token tile][c0..c3]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-#pragma unroll
-  for (int s = 0; s < kDcStages - 1; ++s) {
-    if (s < ktiles) load_stage(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kDcStages - 2>();
-    __syncthreads();
-    if (kt + kDcStages - 1 < ktiles) load_stage(kt + kDcStages - 1);
-    cp_async_commit();
-    const int8_t* w_t = smem + (kt % kDcStages) * (kDcWTile + kDcXTile);
-    const int8_t* x_t = w_t + kDcWTile;
-    const int kr = 32 * wk;
-    // A: fragment i's row j is weight column 4j + i of the warp's first
-    // 32-column span (rows 0..7) or of its second (rows 8..15)
-    uint32_t a[4][4], col[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {  // a0: (span 0, k 0-15), a1: (1, 0-15), a2, a3: k 16-31
-      load_kwords(w_t, kr + 16 * (q >> 1), 2 * wcol + (q & 1), g, tig, col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i][q] = col[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int8_t* xr = x_t + (8 * j + g) * kDcXStride + kr + 4 * tig;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mma_s8(acc[i][j], a[i], b0, b1);
+  if (tid == 0) {
+    for (int s = 0; s < kDcStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 32 * kDcConsumers);
     }
   }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // add the two k halves: warps wk = 1 hand theirs over in shared memory
-  int* red = reinterpret_cast<int*>(smem);  // [16*NT][2 halves][32 lanes]
-  if (wk == 1) {
+  if (warp == kDcConsumers) {
+    // the producer: one lane keeps every free slot of the ring loading.
+    // The first slots' weight boxes go out before the quantize pass ahead
+    // of this kernel has ended (programmatic dependent launch); their
+    // activation boxes once it has.
+    if (lane == 0) {
+      const int first = min(ktiles, kDcStages);
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % kDcStages;
+        if (kt >= kDcStages)
+          mbar_wait(smem_u32(&empty[s]), ((kt / kDcStages) & 1) ^ 1);
+        const uint32_t st = base + s * kStage, bar = smem_u32(&full[s]);
+        const int k0 = kb + kt * kDcBK;
+        mbar_expect_tx(bar, 2 * kDcBox + dc_xbox<NT>());
+        tma_load_3d(st, &w_map, n0, k0, c, bar);
+        tma_load_3d(st + kDcBox, &w_map, n0 + kTileN, k0, c, bar);
+        if (kt + 1 == first) {
+          grid_dependency_wait();
+          for (int f = 0; f < first; ++f)
+            tma_load_2d(base + f * kStage + 2 * kDcBox, &x_map,
+                        kb + f * kDcBK, 0, smem_u32(&full[f]));
+        } else if (kt >= first) {
+          tma_load_2d(st + 2 * kDcBox, &x_map, k0, 0, bar);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // a consumer warp: columns [64*warp, 64*warp + 64) of the tile, the
+    // 16-byte chunks 4*(warp % 2) + 0..3 of 128-column box warp / 2, and
+    // every token. The weight's A fragments come from transposed
+    // ldmatrix loads of 8 rows x 16 bytes (b16 elements: byte pairs of one
+    // row): a lane gets bytes (k = 2*tig, 2*tig + 1) x (columns 2g, 2g + 1)
+    // of a matrix, so two matrices 8 rows apart and one byte_perm give the
+    // k-word (2*tig, 2*tig + 1, 8 + 2*tig, 9 + 2*tig) of column 2g or
+    // 2g + 1; the activations are stored in that k order (k16, the
+    // quantize pass), so the B fragments are plain ldmatrix loads. Under
+    // the boxes' swizzles (16-byte chunk ^ row % 8 in the weight's, ^
+    // (row / 2) % 4 in the activations') each phase's 8 rows fall in 32
+    // banks.
+    const int g = lane >> 2, tig = lane & 3, r = lane & 7, mi = lane >> 3;
+    // A: matrix mi of a load: rows 8 * (mi % 2) + r of a k16 block, chunk
+    // 4 * (warp % 2) + 2 * pair + mi / 2 of the box
+    uint32_t aoff[2];
+#pragma unroll
+    for (int pair = 0; pair < 2; ++pair) {
+      const int chunk = 4 * (warp & 1) + 2 * pair + (mi >> 1);
+      aoff[pair] = (warp >> 1) * kDcBox + (8 * (mi & 1) + r) * kTileN +
+                   ((chunk ^ r) << 4);
+    }
+    // B: matrix mi: token 8 * (j + mi / 2) + r, chunk 2 * ks + mi % 2 (of
+    // four 16-byte chunks a 64-byte row); (token / 2) % 4 == r / 2 % 4;
+    // xone: the same with tile j alone (an odd last tile)
+    uint32_t xoff[2], xone[2];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int chunk = 2 * ks + (mi & 1);
+      xone[ks] = 2 * kDcBox + r * kDcBK + ((chunk ^ ((r >> 1) & 3)) << 4);
+      xoff[ks] = xone[ks] + (mi >> 1) * 8 * kDcBK;
+    }
+
+    int acc[4][NT][4];  // [fragment 2*pair + p][n8 token tile][c0..c3]
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          red[((i * NT + j) * 4 + r) * 64 + wcol * 32 + lane] = acc[i][j][r];
-  }
-  __syncthreads();
-  if (wk == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[i][j][r] += red[((i * NT + j) * 4 + r) * 64 + wcol * 32 + lane];
-  }
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
 
-  // thread (g, tig) of a wk = 0 warp holds, for tokens 8j + 2*tig + p,
-  // columns 4g + 0..3 (c0/c1 of fragments 0..3) and 32 + 4g + 0..3 (c2/c3)
-  // of its 64-column half
-  const float* wsc = ws + (size_t)c * N;
-  TO* oc = out + (size_t)c * T * N;
-  int* pc = part == nullptr ? nullptr : part + (size_t)c * T * N;
-  if (wk == 0) {
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kDcStages;
+      mbar_wait(smem_u32(&full[s]), (kt / kDcStages) & 1);
+      const uint32_t st = base + s * kStage;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int ks = 0; ks < kDcBK / 32; ++ks) {
+        // fragment 2*pair + p: m-row g is column 16*c + 2g + p of chunk
+        // c = 4*(warp % 2) + 2*pair (rows 0..7) and of chunk c + 1 (rows
+        // 8..15); a0/a1 the k16 block 2*ks, a2/a3 block 2*ks + 1
+        uint32_t a[4][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
+        for (int blk = 0; blk < 2; ++blk)
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int t = 8 * j + 2 * tig + p;
-          const int n = n0 + 64 * wcol + 32 * half + 4 * g;
-          if (t >= T || n >= N) continue;
-          if (pc == nullptr) {
-            float v[4];
-            const float sx = xs[t];
+          for (int pair = 0; pair < 2; ++pair) {
+            uint32_t m[4];   // (rows 0-7, chunk c), (8-15, c), (0-7, c+1), (8-15, c+1)
+            ldmatrix_x4_trans(m, st + (32 * ks + 16 * blk) * kTileN + aoff[pair]);
+            a[2 * pair][2 * blk] = __byte_perm(m[0], m[1], 0x6420);
+            a[2 * pair + 1][2 * blk] = __byte_perm(m[0], m[1], 0x7531);
+            a[2 * pair][2 * blk + 1] = __byte_perm(m[2], m[3], 0x6420);
+            a[2 * pair + 1][2 * blk + 1] = __byte_perm(m[2], m[3], 0x7531);
+          }
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              v[i] = scale_sum(acc[i][j][2 * half + p], sx, wsc[n + i]);
-            store4(oc + (size_t)t * N + n, v);
-          } else {
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];   // b0, b1 of tile j, then of tile j + 1
+          ldmatrix_x4(b, st + j * 8 * kDcBK + (j + 1 < NT ? xoff[ks] : xone[ks]));
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              atomicAdd(pc + (size_t)t * N + n + i, acc[i][j][2 * half + p]);
+          for (int i = 0; i < 4; ++i) mma_s8(acc[i][j], a[i], b[0], b[1]);
+          if (j + 1 < NT) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_s8(acc[i][j + 1], a[i], b[2], b[3]);
           }
         }
-  }
-  if (pc == nullptr) return;
+      }
+      mbar_arrive(smem_u32(&empty[s]));
+    }
 
-  // the last piece of this column tile to arrive applies the epilogue
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    last_piece = atomicAdd(done + c * gridDim.x + tile, 1) == (int)gridDim.y - 1;
-  __syncthreads();
-  if (!last_piece) return;
-  __threadfence();
-  for (int e = tid; e < T * (kTileN / 4); e += kDcThreads) {
-    const int t = e / (kTileN / 4), n = n0 + 4 * (e % (kTileN / 4));
-    if (n >= N) continue;
-    const int4 s = __ldcg(reinterpret_cast<const int4*>(pc + (size_t)t * N + n));
-    const float sx = xs[t];
-    const float v[4] = {scale_sum(s.x, sx, wsc[n]), scale_sum(s.y, sx, wsc[n + 1]),
-                        scale_sum(s.z, sx, wsc[n + 2]), scale_sum(s.w, sx, wsc[n + 3])};
-    store4(oc + (size_t)t * N + n, v);
+    // every consumer is done with the ring: it now holds this piece's
+    // int32 sums [NT*8 tokens][256 columns] (rows padded by 16 bytes, so
+    // a half-warp's 8-byte stores fall in 32 banks). Thread (g, tig)
+    // holds, for tokens 8j + 2*tig + q, columns 2g and 2g + 1 (fragments
+    // 2*pair and 2*pair + 1) of chunks 4*(warp % 2) + 2*pair + h of its box.
+    asm volatile("bar.sync 1, %0;\n" :: "n"(32 * kDcConsumers) : "memory");
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int pair = 0; pair < 2; ++pair)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int t = 8 * j + 2 * tig + q;
+            const int col = 64 * warp + 32 * pair + 16 * h + 2 * g;
+            *reinterpret_cast<int2*>(smem + t * kDcPitch + 4 * col) =
+                make_int2(acc[2 * pair][j][2 * h + q],
+                          acc[2 * pair + 1][j][2 * h + q]);
+          }
   }
+
+  // the cluster's pieces add their sums: CTA `rank` takes a slice of the
+  // tile's (token, 4-column) groups and reads them from every piece in
+  // piece order (integer sums: any order gives the same bits), then
+  // applies the epilogue
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  grid_dependency_wait();   // the token scales, written by the quantize pass
+  const int pieces = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  constexpr int kQuads = kDcCols / 4;
+  constexpr int kGroups = NT * 8 * kQuads;
+  const int per = (kGroups + pieces - 1) / pieces;
+  const int lo = rank * per, hi = min(kGroups, lo + per);
+  const float* wsc = ws + (size_t)c * N;
+  TO* oc = out + (size_t)c * T * N;
+  // two groups a thread a round, all their loads issued before any sum
+  for (int e0 = lo + tid; e0 < hi; e0 += 2 * kDcThreads) {
+    int4 v[2][kDcMaxPieces];
+    float4 sw[2];
+    float sx[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = min(e0 + u * kDcThreads, hi - 1);
+      const int t = e / kQuads, q = e % kQuads;
+      int8_t* at = smem + t * kDcPitch + 16 * q;
+#pragma unroll
+      for (int s = 0; s < kDcMaxPieces; ++s)
+        if (s < pieces)
+          v[u][s] = *reinterpret_cast<const int4*>(
+              cluster.map_shared_rank(at, (unsigned)s));
+      const int n = min(n0 + 4 * q, N - 4);
+      sw[u] = *reinterpret_cast<const float4*>(wsc + n);
+      sx[u] = xs[min(t, T - 1)];
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * kDcThreads;
+      const int t = e / kQuads, n = n0 + 4 * (e % kQuads);
+      if (e >= hi || t >= T || n >= N) continue;
+      int4 sum = v[u][0];
+#pragma unroll
+      for (int s = 1; s < kDcMaxPieces; ++s)
+        if (s < pieces) {
+          sum.x += v[u][s].x; sum.y += v[u][s].y;
+          sum.z += v[u][s].z; sum.w += v[u][s].w;
+        }
+      const float o[4] = {scale_sum(sum.x, sx[u], sw[u].x),
+                          scale_sum(sum.y, sx[u], sw[u].y),
+                          scale_sum(sum.z, sx[u], sw[u].z),
+                          scale_sum(sum.w, sx[u], sw[u].w)};
+      store4(oc + (size_t)t * N + n, o);
+    }
+  }
+  // no CTA leaves while another may still read its shared memory
+  cluster.sync();
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (so the library links no libcuda)
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// An int8 tensor of `rank` dims (innermost first), each stride a multiple
+// of 16 bytes, read in boxes of `box` with the given swizzle
+bool encode_int8_map(CUtensorMap* map, const void* base, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, (cuuint32_t)rank,
+                const_cast<void*>(base), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TO, int NT>
+int launch_decode_tile(const int8_t* xq, int ldx, const float* xs,
+                       const int8_t* w, const float* ws, void* out, int T,
+                       int D, int N, int C, int splits, int kchunk,
+                       cudaStream_t s) {
+  constexpr int smem = dc_smem<NT>();
+  const cudaError_t err = allow_smem<i8i8_decode_kernel<TO, NT>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap w_map, x_map;
+  const cuuint64_t w_dims[3] = {(cuuint64_t)N, (cuuint64_t)D, (cuuint64_t)C};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)N, (cuuint64_t)D * N};
+  const cuuint32_t w_box[3] = {kTileN, kDcBK, 1};
+  const cuuint64_t x_dims[2] = {(cuuint64_t)ldx, (cuuint64_t)T};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)ldx};
+  const cuuint32_t x_box[2] = {kDcBK, NT * 8};
+  if (!encode_int8_map(&w_map, w, 3, w_dims, w_strides, w_box,
+                       CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_int8_map(&x_map, xq, 2, x_dims, x_strides, x_box,
+                       CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kDcCols - 1) / kDcCols, splits, C);
+  cfg.blockDim = dim3(kDcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, i8i8_decode_kernel<TO, NT>, w_map, x_map, xs, ws, (TO*)out, T, D,
+      N, kchunk);
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
 }
 
 template <int VEC, typename TO>
@@ -578,47 +803,40 @@ int launch_prefill_tile(const int8_t* xq, int ldx, const float* xs,
   return (int)cudaGetLastError();
 }
 
-template <int NT, int VEC, typename TO>
-int launch_decode_tile(const int8_t* xq, int ldx, const float* xs,
-                       const int8_t* w, const float* ws, void* out, int T,
-                       int D, int N, int C, int splits, int kchunk,
-                       int* part, cudaStream_t s) {
-  const cudaError_t err = allow_smem<i8i8_decode_kernel<NT, VEC, TO>>(kDcSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (N + kTileN - 1) / kTileN;
-  int* done = part == nullptr ? nullptr : part + (size_t)C * T * N;
-  dim3 grid(tiles, splits, C);
-  i8i8_decode_kernel<NT, VEC, TO><<<grid, kDcThreads, kDcSmem, s>>>(
-      xq, ldx, xs, w, ws, (TO*)out, T, D, N, kchunk, part, done);
-  return (int)cudaGetLastError();
-}
-
 template <typename TO>
-int launch_i8i8(const int8_t* xq, int ldx, const float* xs, const int8_t* w,
-                const float* ws, void* out, int T, int D, int N, int C,
-                int splits, int kchunk, int* part, cudaStream_t s) {
-  const bool v16 = N % 16 == 0;
-  if (T > kDecodeMaxT) {
+int launch_i8i8(int tile, const int8_t* xq, int ldx, const float* xs,
+                const int8_t* w, const float* ws, void* out, int T, int D,
+                int N, int C, int splits, int kchunk, cudaStream_t s) {
+  if (tile == kTilePrefill) {
     if (splits != 1) return (int)cudaErrorInvalidValue;
-    return v16 ? launch_prefill_tile<16, TO>(xq, ldx, xs, w, ws, out, T, D, N, C, s)
+    return N % 16 == 0
+               ? launch_prefill_tile<16, TO>(xq, ldx, xs, w, ws, out, T, D, N, C, s)
                : launch_prefill_tile<4, TO>(xq, ldx, xs, w, ws, out, T, D, N, C, s);
   }
-  // the pieces [i*kchunk, min(D, (i+1)*kchunk)) must cover K, none empty
-  if (splits < 1 || kchunk <= 0 || kchunk % kDcBK ||
-      (long long)(splits - 1) * kchunk >= D || (long long)splits * kchunk < D ||
-      (splits > 1) != (part != nullptr))
+  // the decode tile: whole 16-byte weight rows for the tensor map, at most
+  // kDcMaxT tokens, and pieces [i*kchunk, min(D, (i+1)*kchunk)) of whole
+  // stages that cover K, none empty, one cluster
+  if (tile != kTileDecode || T > kDcMaxT || N % 16 || C > 65535 ||
+      splits < 1 || splits > kDcMaxPieces || kchunk <= 0 || kchunk % kDcBK ||
+      (long long)(splits - 1) * kchunk >= D || (long long)splits * kchunk < D)
     return (int)cudaErrorInvalidValue;
-#define PPL_DECODE_TILE(NTV, VECV)                                             \
-  launch_decode_tile<NTV, VECV, TO>(xq, ldx, xs, w, ws, out, T, D, N, C,       \
-                                    splits, kchunk, part, s)
-  if (T <= 8) return v16 ? PPL_DECODE_TILE(1, 16) : PPL_DECODE_TILE(1, 4);
-  return v16 ? PPL_DECODE_TILE(2, 16) : PPL_DECODE_TILE(2, 4);
+#define PPL_DECODE_TILE(NTV)                                                 \
+  case NTV:                                                                   \
+    return launch_decode_tile<TO, NTV>(xq, ldx, xs, w, ws, out, T, D, N, C,   \
+                                       splits, kchunk, s)
+  switch ((T + 7) / 8) {
+    PPL_DECODE_TILE(1); PPL_DECODE_TILE(2); PPL_DECODE_TILE(3);
+    PPL_DECODE_TILE(4); PPL_DECODE_TILE(5); PPL_DECODE_TILE(6);
+    PPL_DECODE_TILE(7); PPL_DECODE_TILE(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef PPL_DECODE_TILE
 }
 
 // ---------------------------------------------------------------- K4 tiles
 
 constexpr int kW4Stage = 64;  // packed rows a stage at groups up to 64
+constexpr int kW4DecodeMaxT = 16;  // the largest T of K4's decode tile
 
 // K4's per-group constants: a stage holds KSP packed rows (whole groups,
 // at least 64), so GPS groups of each nibble half
@@ -1130,7 +1348,7 @@ int launch_w4a8(const int8_t* xq, int ldx, const float* xs, const int8_t* w,
                 const float* ws, void* out, int T, int D2, int N, int C,
                 int splits, int kchunk, float* part, int* done,
                 cudaStream_t s) {
-  if (T > kDecodeMaxT) {
+  if (T > kW4DecodeMaxT) {
     if (splits != 1) return (int)cudaErrorInvalidValue;
     return launch_w4_prefill<GROUP, TO>(xq, ldx, xs, w, ws, out, T, D2, N, C,
                                         s);
@@ -1175,39 +1393,43 @@ int launch_w4a8_for(const int8_t* xq, int ldx, const float* xs,
 extern "C" {
 
 // x [T, D] -> int8 rows xq [T, ld] (zero in [D, ld)) and f32 scales xs
-// [T]; D and ld multiples of 4, x 16-byte aligned, xq 4-byte aligned
+// [T]; D and ld multiples of 4, x 16-byte aligned, xq 4-byte aligned; k16
+// != 0 puts each 16-byte group in the decode tile's order (ld a
+// multiple of 16)
 int ppl_i8i8_quantize_rows(int x_dtype, const void* x, int8_t* xq, float* xs,
-                           int T, int D, int ld, void* stream) {
+                           int T, int D, int ld, int k16, void* stream) {
   if (T == 0) return 0;
-  if (ld < D || D % 4 || ld % 4) return (int)cudaErrorInvalidValue;
+  if (ld < D || D % 4 || ld % 4 || (k16 && ld % 16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_dtype == 0)
-    quantize_rows_kernel<float><<<T, kQuantThreads, 0, s>>>((const float*)x, xq, xs, D, ld);
+    quantize_rows_kernel<float><<<T, kQuantThreads, 0, s>>>(
+        (const float*)x, xq, xs, D, ld, k16);
   else
     quantize_rows_kernel<__nv_bfloat16><<<T, kQuantThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, xq, xs, D, ld);
+        (const __nv_bfloat16*)x, xq, xs, D, ld, k16);
   return (int)cudaGetLastError();
 }
 
 // K3: xq [T, ldx] (ldx a multiple of 128, at least D, zero past D) and xs
 // from ppl_i8i8_quantize_rows; w int8 [C, D, N]; ws f32 [C, N]; out
-// [C, T, N]. T <= 16 runs the decode tile over `splits` pieces of K of
-// `kchunk` rows each (a multiple of 64; the last piece ends at D), and
-// needs a zeroed int32 workspace of C*T*N sums and C*ceil(N/128) counters
-// when splits > 1 (null when 1); T > 16 runs the prefill tile, splits 1.
-int ppl_i8i8_gemm(int out_dtype, const int8_t* xq, int ldx, const float* xs,
-                  const int8_t* w, const float* ws, void* out, int T, int D,
-                  int N, int C, int splits, int kchunk, int* workspace,
-                  void* stream) {
+// [C, T, N]. `tile` 0 runs the prefill tile (splits 1); 1 the decode tile
+// (T <= 64, N % 16 == 0, w 16-byte aligned, xq in the k16 order) over
+// `splits` pieces of K, a cluster of at most 8, of `kchunk` rows each (a
+// multiple of 64; the last piece ends at D).
+int ppl_i8i8_gemm(int out_dtype, int tile, const int8_t* xq, int ldx,
+                  const float* xs, const int8_t* w, const float* ws,
+                  void* out, int T, int D, int N, int C, int splits,
+                  int kchunk, void* stream) {
   if (T == 0) return 0;
   if (ldx % kPfBK || ldx < (D + kPfBK - 1) / kPfBK * kPfBK)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (out_dtype == 0)
-    return launch_i8i8<float>(xq, ldx, xs, w, ws, out, T, D, N, C, splits,
-                              kchunk, workspace, s);
-  return launch_i8i8<__nv_bfloat16>(xq, ldx, xs, w, ws, out, T, D, N, C,
-                                    splits, kchunk, workspace, s);
+    return launch_i8i8<float>(tile, xq, ldx, xs, w, ws, out, T, D, N, C,
+                              splits, kchunk, s);
+  return launch_i8i8<__nv_bfloat16>(tile, xq, ldx, xs, w, ws, out, T, D, N,
+                                    C, splits, kchunk, s);
 }
 
 // K4: xq [T, ldx] (ldx a multiple of 16, at least D, D = 2 * D2) and xs

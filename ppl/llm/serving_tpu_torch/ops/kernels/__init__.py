@@ -4,7 +4,8 @@ Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (or raises). :func:`launch_counts` reads the
 wrappers' launch counters (and, apart, K1's block-tail launches under
 ``paged_decode_attention_tail`` and K1's and K2's ALiBi launches under
-``paged_decode_attention_alibi`` and ``paged_prefill_attention_alibi``);
+``paged_decode_attention_alibi`` and ``paged_prefill_attention_alibi``,
+and K3's by tile under ``i8i8_matmul_<tile>``);
 :func:`reset_launch_counts` sets them to 0; :func:`add_launch_counts`
 adds the launches a replayed CUDA graph holds.
 """
@@ -28,6 +29,9 @@ COUNTERS["paged_decode_attention_alibi"] = (
     paged_attention.paged_decode_attention, "alibi_launches")
 COUNTERS["paged_prefill_attention_alibi"] = (
     paged_attention.paged_prefill_attention, "alibi_launches")
+for _tile in quant_matmul.TILES:     # K3's launches by tile
+    COUNTERS[f"i8i8_matmul_{_tile}"] = (quant_matmul.i8i8_matmul,
+                                        f"{_tile}_launches")
 
 
 def launch_counts() -> dict:

@@ -4,12 +4,13 @@ call shapes, the counterpart of the JAX package's tool of the same name
 (same ``shapes_7b()`` / ``shapes_tiny()``: the fused wqkv, wo, gate|up,
 down and lm_head calls of one decode step).
 
-The port's kernels have no block sizes to sweep. At decode sizes (T <=
-``DECODE_MAX_T``) the decode tile cuts the contraction into split-K
-pieces, so each shape runs at the planner's piece count
-(``plan_split_k`` / ``plan_split_k_w4``), at 1 and at twice the
-planner's (fewer where a piece would be empty); above it the prefill
-tile runs whole, one row a shape. Each row gives the kernel's mean
+The port's kernels have no block sizes to sweep. At decode sizes (K3 on
+its decode tile, ``qk.k3_tile``; K4 at T <= ``W4_DECODE_MAX_T``) the
+decode tile cuts the contraction into split-K pieces, so each shape runs
+at the planner's piece count (``plan_split_k`` / ``plan_split_k_w4``),
+at 1 and at twice the planner's (fewer where a piece would be empty, and
+K3's at most ``MAX_PIECES``); on a prefill tile each shape runs whole,
+one row a shape. Each row gives the kernel's mean
 device time over ``--iters`` back-to-back launches (CUDA events behind a
 device spin that outlasts the host's enqueueing; bf16 out; a weight that
 fits the 50 MB L2 stays there between launches, as in the JAX tool, and
@@ -78,11 +79,13 @@ def split_candidates(method: str, t: int, d: int, c: int, n: int,
     """The piece counts a row runs at, as the planner would run them: the
     planner's choice, 1 and twice the planner's (decode tile); 1 (the
     prefill tile)."""
-    if t > qk.DECODE_MAX_T:
-        return [1]
     if method == "i8i8":
+        if qk.k3_tile(t, n) == "prefill":
+            return [1]
         plan = lambda s=None: qk.plan_split_k(t, d, n, c, num_sms, s)[0]
     else:
+        if t > qk.W4_DECODE_MAX_T:
+            return [1]
         plan = lambda s=None: qk.plan_split_k_w4(t, d // 2, n, c, num_sms,
                                                  W4_GROUP, s)[0]
     best = plan()

@@ -25,32 +25,95 @@ SHAPES = [(5120, 15360, 1), (5120, 5120, 1), (5120, 13696, 2),
 
 
 @pytest.mark.parametrize("d,n,c", SHAPES)
-@pytest.mark.parametrize("t", [1, 8, 16])
+@pytest.mark.parametrize("t", [1, 8, 16, 17, 32, 64])
 @pytest.mark.parametrize("num_sms", [132, 114, 8])
 def test_split_k_pieces_cover_k(d, n, c, t, num_sms):
+    """Up to 64 tokens the decode tile (256-column CTAs) cuts K into whole
+    stages, none empty, at most one cluster of MAX_PIECES (the portable
+    cluster size); its CTAs reach DECODE_CTAS_PER_SM a SM unless K's
+    stages or the cluster cap them, with the fewest pieces that do. A
+    weight without whole 16-byte rows (N % 16 > 0) runs whole on the
+    prefill tile."""
     splits, kchunk = qk.plan_split_k(t, d, n, c, num_sms)
-    assert splits >= 1 and kchunk > 0 and kchunk % qk.K_STAGE == 0
+    if n % 16:
+        assert qk.k3_tile(t, n) == "prefill"
+        assert (splits, kchunk) == (1, -(-d // qk.K_STAGE) * qk.K_STAGE)
+        return
+    assert qk.k3_tile(t, n) == "decode"
+    assert 1 <= splits <= qk.MAX_PIECES <= 8
+    assert kchunk > 0 and kchunk % qk.K_STAGE == 0
     pieces = [(i * kchunk, min(d, (i + 1) * kchunk)) for i in range(splits)]
     assert pieces[0][0] == 0 and pieces[-1][1] == d
     assert all(lo < hi for lo, hi in pieces)               # none empty
     assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
-    # at least CTAS_PER_SM CTAs per SM, unless K has too few stages
-    tiles = c * -(-n // qk.TILE_N)
+    tiles = c * -(-n // qk.DECODE_TILE_N)
     stages = -(-d // qk.K_STAGE)
-    assert tiles * splits >= min(qk.CTAS_PER_SM * num_sms, tiles * stages)
+    target = qk.DECODE_CTAS_PER_SM * num_sms
+    assert tiles * splits >= min(target, tiles * min(stages, qk.MAX_PIECES))
+    if splits > 1:                  # one piece fewer would miss the aim
+        assert tiles * (splits - 1) < target
+    # an explicit count is held to the cluster
+    assert qk.plan_split_k(t, d, n, c, num_sms, splits=64)[0] <= 8
 
 
-@pytest.mark.parametrize("t", [17, 100, 1024, 4096])
+@pytest.mark.parametrize("t", [65, 100, 1024, 4096])
 def test_prefill_sizes_run_whole(t):
     assert qk.plan_split_k(t, 5120, 13696, 2, 132) == (1, 5120)
     assert qk.plan_split_k(t, 260, 196, 1, 132) == (1, 320)
 
 
+@pytest.mark.parametrize("t,tile", [(1, "decode"), (16, "decode"),
+                                    (17, "decode"), (64, "decode"),
+                                    (65, "prefill"), (4096, "prefill")])
+def test_k3_tile_by_tokens(t, tile):
+    assert qk.k3_tile(t, 5120) == tile
+    assert qk.k3_tile(t, 196) == "prefill"       # no whole 16-byte rows
+
+
 def test_split_k_at_13b_widths():
-    """The 13B down matmul (70 MB of weight, 40 column tiles) is cut into
-    pieces enough for two CTAs on each of an H100's 132 SMs."""
-    assert qk.plan_split_k(8, 13696, 5120, 1, 132) == (8, 1920)
+    """The 13B down matmul (70 MB of weight, 20 column tiles of 256) is
+    cut into 7 pieces, enough for a CTA on each of an H100's 132 SMs;
+    gate|up (2 x 54 column tiles) into 2."""
+    assert qk.plan_split_k(8, 13696, 5120, 1, 132) == (7, 1984)
     assert qk.plan_split_k(8, 5120, 13696, 2, 132) == (2, 2560)
+
+
+def test_split_k_at_13b_widths_t64():
+    """The 64-row decode bucket at 13B widths (132 SMs): wqkv (60 column
+    tiles of 256) in 3 pieces, wo and down (20 each) in 7, gate|up (2 x
+    54) in 2: the fewest that give each SM a CTA, each cut as evenly as
+    whole stages of 64 rows allow; the plan reads T only for the tile."""
+    plans = [qk.plan_split_k(64, d, n, c, 132) for d, n, c in SHAPES[:4]]
+    assert plans == [(3, 1728), (7, 768), (2, 2560), (7, 1984)]
+    assert [qk.plan_split_k(t, d, n, c, 132) for t in (1, 17, 32)
+            for d, n, c in SHAPES[:4]] == plans * 3
+
+
+def test_k16_order_matches_the_transposed_fragments():
+    """The decode tile's k order: the transposed ldmatrix of two 8-row
+    matrices and one byte_perm give lane tig the k-word (2*tig, 2*tig+1,
+    8+2*tig, 9+2*tig) of a column; the quantize pass stores value k of a
+    16-byte group at byte dc_k16_offset(k), so word tig of the group (the
+    lane's B fragment) holds the same k in the same byte order, and the
+    order is a permutation of the group."""
+    def k16_offset(k):          # dc_k16_offset in csrc/quant_matmul.cu
+        return 4 * (k >> 1) + (k & 1) if k < 8 else \
+            4 * ((k - 8) >> 1) + 2 + (k & 1)
+    assert sorted(k16_offset(k) for k in range(16)) == list(range(16))
+    stored = [None] * 16
+    for k in range(16):
+        stored[k16_offset(k)] = k
+    for tig in range(4):
+        # ldmatrix.trans: matrix rows 2*tig, 2*tig+1 (k) of the block's
+        # first (rows 0..7) and second (rows 8..15) matrix, b16 elements
+        # (byte pairs of one row); byte_perm selectors 0x6420 / 0x7531
+        m0 = [(2 * tig, 0), (2 * tig, 1), (2 * tig + 1, 0), (2 * tig + 1, 1)]
+        m1 = [(8 + k, col) for k, col in m0]
+        for sel, col in ((0x6420, 0), (0x7531, 1)):
+            both = m0 + m1
+            word = [both[(sel >> (4 * i)) & 0xF] for i in range(4)]
+            assert all(c == col for _, c in word)
+            assert [k for k, _ in word] == stored[4 * tig:4 * tig + 4]
 
 
 # (D, N, C) of K4's LLaMA-2-7B weights: wqkv, wo, gate|up, down, lm_head;

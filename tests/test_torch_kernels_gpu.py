@@ -28,6 +28,7 @@ import torch
 
 from ppl.llm.serving_tpu_torch.ops import attention as attn_ops
 from ppl.llm.serving_tpu_torch.ops import kv_cache as kv_ops
+from ppl.llm.serving_tpu_torch.ops import kernels
 from ppl.llm.serving_tpu_torch.ops import quant as quant_ops
 from ppl.llm.serving_tpu_torch.ops.kernels import cache_read
 from ppl.llm.serving_tpu_torch.ops.kernels import paged_attention as pk
@@ -110,18 +111,19 @@ def test_prefill_kernel_matches_plain(cuda, dtype, hq, kvh, hd):
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
 
 
-# K3 at T on either side of the decode tile's 8 and 16 rows and of the
-# prefill tile's 128, at 256 x 192 and at the edges the tiles mask: D % 32
-# != 0, N not a multiple of the 128-column tile (nor of 16: 4-byte weight
-# copies)
-K3_TS = [1, 8, 9, 16, 17, 100, 1024, 4096]
+# K3 at T on either side of the decode tile's 8-row token tiles and 64
+# rows and of the prefill tile's 128, at 256 x 192 and at the edges the
+# tiles mask: D % 32 != 0, N not a multiple of the 128-column tile (nor of
+# 16: the prefill tile at every T, with 4-byte weight copies)
+K3_TS = [1, 8, 9, 16, 17, 24, 32, 48, 64, 100, 1024, 4096]
 
 
 @pytest.mark.parametrize("t", K3_TS)
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("d,n", [(256, 192), (260, 196)])
 def test_i8i8_kernel_matches_plain(cuda, t, fused, d, n):
-    """Exact in f32 and in bf16 (the same f32 value rounded once)."""
+    """Exact in f32 and in bf16 (the same f32 value rounded once), on the
+    tile ``k3_tile`` routes T and N to, whose launch counter moves."""
     g = torch.Generator(device=cuda).manual_seed(4)
     w = torch.randn(((2, d, n) if fused else (d, n)), generator=g,
                     device=cuda) * 0.05
@@ -132,10 +134,15 @@ def test_i8i8_kernel_matches_plain(cuda, t, fused, d, n):
     else:
         wq, ws = quant_ops.quantize_weight(w)
     x = torch.randn((t, d), generator=g, device=cuda)
-    before = qk.i8i8_matmul.launches
+    tile = qk.k3_tile(t, n)
+    before = kernels.launch_counts()
     out = qk.i8i8_matmul(x, wq, ws)
     torch.cuda.synchronize()
-    assert qk.i8i8_matmul.launches == before + 1
+    after = kernels.launch_counts()
+    assert after["i8i8_matmul"] == before["i8i8_matmul"] + 1
+    for name in qk.TILES:
+        key = f"i8i8_matmul_{name}"
+        assert after[key] == before[key] + (name == tile), key
     ref = quant_ops.i8i8_matmul(x, wq, ws)
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     out_bf = qk.i8i8_matmul(x.to(torch.bfloat16), wq, ws,
@@ -579,12 +586,13 @@ K3_13B = [("wqkv", 5120, 15360, False), ("wo", 5120, 5120, False),
 
 
 @pytest.mark.parametrize("name,d,n,fused", K3_13B)
-@pytest.mark.parametrize("t", [8, 16])
+@pytest.mark.parametrize("t", [8, 16, 17, 32, 64])
 def test_i8i8_kernel_split_k_is_exact_and_repeatable(cuda, name, d, n,
                                                      fused, t):
-    """At the 13B widths the decode tile cuts K into pieces whose int32
-    sums meet by atomicAdd: equal to the plain version bit for bit, and
-    two runs give the same bits."""
+    """At the 13B widths the decode tile cuts K into pieces, a thread
+    block cluster, whose int32 sums meet in the cluster's shared memory:
+    equal to the plain version bit for bit in f32 and in bf16, and two
+    runs and two replays of one captured CUDA graph give the same bits."""
     wq, ws, g = _i8i8_operands(cuda, d, n, fused, 40)
     splits, _ = qk.plan_split_k(t, d, n, 2 if fused else 1,
                                 torch.cuda.get_device_properties(
@@ -597,9 +605,23 @@ def test_i8i8_kernel_split_k_is_exact_and_repeatable(cuda, name, d, n,
     assert torch.equal(first.view(torch.int32), second.view(torch.int32))
     assert torch.equal(first, quant_ops.i8i8_matmul(x, wq, ws))
     xb = x.to(torch.bfloat16)
+    ref_bf = quant_ops.i8i8_matmul(xb, wq, ws).to(torch.bfloat16)
     a = qk.i8i8_matmul(xb, wq, ws, out_dtype=torch.bfloat16)
     b = qk.i8i8_matmul(xb, wq, ws, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(a.view(torch.int16), ref_bf.view(torch.int16))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = qk.i8i8_matmul(xb, wq, ws, out_dtype=torch.bfloat16)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = c.clone()
+    c.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed.view(torch.int16), ref_bf.view(torch.int16))
+    assert torch.equal(c.view(torch.int16), ref_bf.view(torch.int16))
 
 
 # K2's tensor-core body: MHA at hd 128 (G = 1) and TinyLlama's G = 8 at

@@ -61,7 +61,15 @@ def test_split_candidates(method):
             best = qk.plan_split_k_w4(8, d // 2, n, c, SMS, mb.W4_GROUP)[0]
         assert cands[0] == best and 1 in cands and len(set(cands)) == \
             len(cands) and max(cands) <= 2 * best
-        assert mb.split_candidates(method, 32, d, c, n, SMS) == [1]
+        # above the decode tiles' tokens (K3's streaming tile takes 64,
+        # K4's decode tile 16) the prefill tile runs whole
+        big = qk.DECODE_MAX_T + 1 if method == "i8i8" else 32
+        assert mb.split_candidates(method, big, d, c, n, SMS) == [1]
+    if method == "i8i8":    # the streaming tile's pieces: one cluster
+        for name, d, c, n in mb.shapes_7b():
+            cands = mb.split_candidates(method, 32, d, c, n, SMS)
+            assert cands[0] == qk.plan_split_k(32, d, n, c, SMS)[0]
+            assert 1 in cands and max(cands) <= qk.MAX_PIECES
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 7, 10_000])
@@ -83,9 +91,11 @@ def test_split_override_plans(splits, d):
 
 def test_split_override_refusals():
     with pytest.raises(ValueError, match="prefill tile"):
-        qk.plan_split_k(17, 4096, 512, 1, SMS, 2)
-    assert qk.plan_split_k(17, 4096, 512, 1, SMS, 1) == \
-        qk.plan_split_k(17, 4096, 512, 1, SMS)
+        qk.plan_split_k(qk.DECODE_MAX_T + 1, 4096, 512, 1, SMS, 2)
+    assert qk.plan_split_k(qk.DECODE_MAX_T + 1, 4096, 512, 1, SMS, 1) == \
+        qk.plan_split_k(qk.DECODE_MAX_T + 1, 4096, 512, 1, SMS)
+    with pytest.raises(ValueError, match="prefill tile"):
+        qk.plan_split_k_w4(17, 2048, 512, 1, SMS, 64, 2)
     x = torch.zeros((4, 64))
     with pytest.raises(ValueError, match="splits 0"):
         qk.i8i8_matmul(x, torch.zeros((64, 8), dtype=torch.int8),
